@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``repro`` for NVIDIA Hopper (H100, ``sm_90a``).
+
+The JAX package ``repro`` stays the reference. This package imports
+nothing of it (nor ``jax``): what it needs of numpy-only modules it keeps
+as its own copies, under the same module names, so each counterpart is
+easy to find. Ported so far (see ``README.md`` beside this file):
+
+  kernels/race_lookup/  the three RACE-hash lookup kernels in CUDA C++,
+                        their plain PyTorch versions and the ops wrappers
+  kvs/race.py           ``DeviceRaceTable`` / ``ShardedDeviceRaceTable``
+                        with device-resident bucket tables
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

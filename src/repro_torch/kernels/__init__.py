@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels of the port, one directory per kernel with
+its CUDA source under ``csrc/``, Python wrappers, a plain PyTorch version
+(``ref.py``) and public ops (``ops.py``); ``_build.py`` compiles and binds
+them:
+
+  race_lookup/  batched one-sided KV lookup over a RACE hash table in
+                device memory (the meta-server / DrTM-KV data path)
+"""

@@ -1,0 +1,140 @@
+"""Public wrappers of the RACE-lookup kernels (counterparts of
+``repro/kernels/race_lookup/ops.py``).
+
+``impl`` maps onto the JAX package's names:
+
+  ==========  ==================  ===================================
+  port        JAX                 what runs
+  ==========  ==================  ===================================
+  "kernel"    "pallas"            tiled kernel (default)
+  "tiled"     "pallas_tiled"      tiled kernel
+  "scalar"    "pallas_scalar"     scalar kernel
+  "ref"       "ref"               plain PyTorch version (``ref.py``)
+  ==========  ==================  ===================================
+
+The JAX ``"pallas"`` impl switches to the scalar kernel above
+``TILED_VMEM_BUDGET_BYTES``, because its tiled kernel pins the whole table
+in the TPU's VMEM. Both Hopper kernels read the table straight from HBM and
+have no such bound, so ``"kernel"`` takes the tiled kernel at every table
+size and the budget has no counterpart here.
+
+Inputs are tensors on one device, or numpy arrays (moved to that device,
+or to ``device=``, which defaults to the CUDA card). Integer inputs become
+int32, as JAX's default 32-bit mode makes them; values keep their dtype.
+For tensors on the CPU every impl runs the plain version: that is the only
+place it stands in for a kernel. On a CUDA tensor a kernel impl launches
+its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...device import resolve_device
+from .race_lookup import (QBLOCK, race_lookup_scalar, race_lookup_sharded
+                          as _sharded_kernel, race_lookup_tiled)
+from .ref import race_lookup_ref, race_lookup_sharded_ref
+
+IMPLS = ("kernel", "tiled", "scalar", "ref")
+SHARDED_IMPLS = ("kernel", "scalar", "ref")
+
+
+def _on_device(device, values, *ints):
+    """Move the inputs to one device: that of the tensors among them, else
+    ``resolve_device(device)``. Returns (values, *int32 tensors)."""
+    devs = {a.device for a in (values, *ints) if isinstance(a, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(f"inputs lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if devs:
+        dev = devs.pop()
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} but the inputs lie on {dev}")
+    else:
+        dev = resolve_device(device)
+
+    def conv(a, dtype=None):
+        t = a if isinstance(a, torch.Tensor) \
+            else torch.as_tensor(np.asarray(a))
+        return t.to(device=dev, dtype=dtype).contiguous()
+
+    return (conv(values), *(conv(a, torch.int32) for a in ints))
+
+
+def race_lookup(fp_table, val_table, queries, bucket_idx,
+                impl: str = "kernel", qblock: int = QBLOCK, device=None):
+    """Batched two-choice hash lookup.
+
+    fp_table (NB, NSLOT) int32, val_table (NB, NSLOT, VDIM), queries (NQ,)
+    int32 fingerprints, bucket_idx (NQ, 2) int32 -> (values (NQ, VDIM),
+    found (NQ,) int32). ``qblock`` is the tiled kernel's queries per block
+    (the JAX default of 64 is an MXU-sized tile; see ``QBLOCK``).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    val_table, fp_table, queries, bucket_idx = _on_device(
+        device, val_table, fp_table, queries, bucket_idx)
+    if impl == "ref" or fp_table.device.type == "cpu":
+        return race_lookup_ref(fp_table, val_table, queries, bucket_idx)
+    if impl == "scalar":
+        return race_lookup_scalar(fp_table, val_table, queries, bucket_idx)
+    return race_lookup_tiled(fp_table, val_table, queries, bucket_idx,
+                             qblock=qblock)
+
+
+def _check_shards(shard_idx, ns: int) -> None:
+    """Shard ids outside [0, NS) raise ``IndexError``, as the JAX path does.
+    For a device tensor this reads two numbers back (one synchronisation)."""
+    if isinstance(shard_idx, torch.Tensor):
+        if shard_idx.numel() == 0:
+            return
+        lo, hi = (int(x) for x in torch.aminmax(shard_idx))
+    else:
+        s = np.asarray(shard_idx)
+        if s.size == 0:
+            return
+        lo, hi = int(s.min()), int(s.max())
+    if lo < 0 or hi >= ns:
+        raise IndexError(f"shard id outside [0, {ns}): min {lo}, max {hi}")
+
+
+def race_lookup_sharded(fp_tables, val_tables, queries, bucket_idx,
+                        shard_idx, impl: str = "kernel", qblock: int = QBLOCK,
+                        device=None):
+    """Batched lookup over a SHARDED table set (the dkv shard map).
+
+    fp_tables (NS, NB, NSLOT) int32, val_tables (NS, NB, NSLOT, VDIM),
+    queries (NQ,) int32 fingerprints, bucket_idx (NQ, 2) int32 intra-shard
+    rows, shard_idx (NQ,) int32 -> (values (NQ, VDIM), found (NQ,) int32)
+    in input order.
+
+    ``impl``:
+      * ``"kernel"`` — the sharded kernel: each query reads its own shard
+        id, results go straight to input order (no host sort or scatter),
+      * ``"scalar"`` — per-shard calls into the scalar kernel, as the JAX
+        ``"pallas_scalar"`` impl does,
+      * ``"ref"`` — the plain version.
+    """
+    if impl not in SHARDED_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of "
+                         f"{SHARDED_IMPLS}")
+    _check_shards(shard_idx, len(fp_tables))
+    val_tables, fp_tables, queries, bucket_idx, shard_idx = _on_device(
+        device, val_tables, fp_tables, queries, bucket_idx, shard_idx)
+    if impl == "ref" or fp_tables.device.type == "cpu":
+        return race_lookup_sharded_ref(fp_tables, val_tables, queries,
+                                       bucket_idx, shard_idx)
+    if impl == "kernel":
+        return _sharded_kernel(fp_tables, val_tables, queries, bucket_idx,
+                               shard_idx, qblock=qblock)
+    values = torch.zeros((len(queries), val_tables.shape[-1]),
+                         dtype=val_tables.dtype, device=val_tables.device)
+    found = torch.zeros(len(queries), dtype=torch.int32,
+                        device=val_tables.device)
+    for sid in torch.unique(shard_idx).tolist():
+        rows = torch.nonzero(shard_idx == sid).squeeze(1)
+        values[rows], found[rows] = race_lookup_scalar(
+            fp_tables[sid], val_tables[sid], queries[rows].contiguous(),
+            bucket_idx[rows].contiguous())
+    return values, found
