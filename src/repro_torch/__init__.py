@@ -5,10 +5,17 @@ nothing of it (nor ``jax``): what it needs of numpy-only modules it keeps
 as its own copies, under the same module names, so each counterpart is
 easy to find. Ported so far (see ``README.md`` beside this file):
 
-  kernels/race_lookup/  the three RACE-hash lookup kernels in CUDA C++,
-                        their plain PyTorch versions and the ops wrappers
-  kvs/race.py           ``DeviceRaceTable`` / ``ShardedDeviceRaceTable``
-                        with device-resident bucket tables
+  core/                      the simulated RDMA fabric and the KRCore
+                             control plane (numpy, as in the reference)
+  kernels/race_lookup/       the three RACE-hash lookup kernels in CUDA
+                             C++, their plain PyTorch versions and ops
+  kernels/serverless_stage/  the chunk-gather kernel in CUDA C++ that
+                             packs and unpacks chain-hop slabs
+  kvs/race.py                ``DeviceRaceTable`` /
+                             ``ShardedDeviceRaceTable`` with
+                             device-resident bucket tables
+  serverless/                the chain hop: ``ChainRunner`` over the
+                             port's core, with its slabs on the card
 """
 
 from .device import resolve_device

@@ -7,6 +7,7 @@ default raises instead of quietly running elsewhere.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,28 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def on_device(device, arrays, dtypes):
+    """Move ``arrays`` (tensors or numpy arrays) to one device: that of the
+    tensors among them, else ``resolve_device(device)``. Each becomes a
+    contiguous tensor of its entry in ``dtypes`` (``None`` keeps its dtype).
+    Raises ``ValueError`` when the tensors lie on several devices or
+    ``device`` names another kind of device than theirs."""
+    devs = {a.device for a in arrays if isinstance(a, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(f"inputs lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if devs:
+        dev = devs.pop()
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} but the inputs lie on {dev}")
+    else:
+        dev = resolve_device(device)
+
+    def conv(a, dtype):
+        t = a if isinstance(a, torch.Tensor) \
+            else torch.as_tensor(np.asarray(a))
+        return t.to(device=dev, dtype=dtype).contiguous()
+
+    return [conv(a, dtype) for a, dtype in zip(arrays, dtypes)]

@@ -3,6 +3,8 @@ its CUDA source under ``csrc/``, Python wrappers, a plain PyTorch version
 (``ref.py``) and public ops (``ops.py``); ``_build.py`` compiles and binds
 them:
 
-  race_lookup/  batched one-sided KV lookup over a RACE hash table in
-                device memory (the meta-server / DrTM-KV data path)
+  race_lookup/       batched one-sided KV lookup over a RACE hash table
+                     in device memory (the meta-server / DrTM-KV data path)
+  serverless_stage/  the masked chunk gather that packs and unpacks the
+                     serverless chain hop's payload slabs
 """

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import on_device
 from .race_lookup import (QBLOCK, race_lookup_scalar, race_lookup_sharded
                           as _sharded_kernel, race_lookup_tiled)
 from .ref import race_lookup_ref, race_lookup_sharded_ref
@@ -41,25 +41,9 @@ SHARDED_IMPLS = ("kernel", "scalar", "ref")
 
 
 def _on_device(device, values, *ints):
-    """Move the inputs to one device: that of the tensors among them, else
-    ``resolve_device(device)``. Returns (values, *int32 tensors)."""
-    devs = {a.device for a in (values, *ints) if isinstance(a, torch.Tensor)}
-    if len(devs) > 1:
-        raise ValueError(f"inputs lie on several devices: "
-                         f"{sorted(map(str, devs))}")
-    if devs:
-        dev = devs.pop()
-        if device is not None and torch.device(device).type != dev.type:
-            raise ValueError(f"device={device!r} but the inputs lie on {dev}")
-    else:
-        dev = resolve_device(device)
-
-    def conv(a, dtype=None):
-        t = a if isinstance(a, torch.Tensor) \
-            else torch.as_tensor(np.asarray(a))
-        return t.to(device=dev, dtype=dtype).contiguous()
-
-    return (conv(values), *(conv(a, torch.int32) for a in ints))
+    """(values, *int32 tensors) on one device (see ``device.on_device``)."""
+    return on_device(device, (values, *ints),
+                     (None,) + (torch.int32,) * len(ints))
 
 
 def race_lookup(fp_table, val_table, queries, bucket_idx,

@@ -28,6 +28,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch, repro_torch.kvs\n"
             "import repro_torch.kernels.race_lookup.ops\n"
             "import repro_torch.kernels.race_lookup.race_lookup\n"
+            "import repro_torch.core, repro_torch.serverless\n"
+            "import repro_torch.kernels.serverless_stage.ops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
