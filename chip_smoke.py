@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two device paths on one CUDA card: the device
-RACE-table lookup and the serverless chain hop.
+"""Drive the PyTorch port's device paths on one CUDA card: the device
+RACE-table lookup, the serverless chain hop, and model serving (prefill and
+decode) for qwen2-0.5b and rwkv6-7b.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -10,10 +11,12 @@ toolkit (``nvcc``):
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 
-1. Device report: the card's name and power limit from ``nvidia-smi``.
-2. Build: compile every CUDA source of the port (``race_lookup.cu`` and
-   ``serverless_stage.cu``; one ``nvcc`` per source, started together) and
-   print each ``-Xptxas -v`` report.
+1. Device report: the card's name and power limit from ``nvidia-smi``;
+   both TF32 switches off (float32 products in full float32).
+2. Build: compile every CUDA source of the port (``race_lookup.cu``,
+   ``serverless_stage.cu``, ``flash_attention.cu`` and ``wkv.cu``; one
+   ``nvcc`` per source, started together) and print each ``-Xptxas -v``
+   report.
 3. Kernel parity: each kernel against its plain PyTorch version on the
    card, exact. The lookup kernels: values and ``found`` at the test shapes
    (NSLOT 4/8/16/32, ragged tails, NQ = 0), out-of-range bucket ids, empty
@@ -23,7 +26,17 @@ plain version):
    wraps once, then ids clamp, as in JAX), other chunk sizes and an
    unaligned source (the scalar path); and ``stage_pack`` /
    ``stage_unpack`` round trips over payloads of 0, 1, 127, 128, 129 and
-   513 elements, equal to the same calls on the CPU.
+   513 elements, equal to the same calls on the CPU. ``flash_attention``:
+   the six cases of ``test_flash_attention_sweep``, the block-shape case,
+   qwen2's prefill shape (8, 14, 512, 64) in bf16 and float32, ragged
+   S = 200 and 544, D = 96 and 256 with window 512 and cap 50 in bf16, and
+   ``kv_len`` cases, at 2e-5 (float32) / 2e-2 (bf16); the cases at the
+   models' shapes draw inputs large enough that each tolerance lies below
+   the output's mean magnitude, which the phase checks. ``wkv``: the four ``test_wkv_sweep``
+   cases, decay at the -4.25 clamp, and rwkv6-7b's shape (4, 64, 512, 64)
+   with bf16 r/k/v and float32 logw, then in float32: ``o`` and the final
+   state against the plain chunked version, ``o`` against
+   ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o`` at 2e-2).
 4. Lookup path at real size: a ``DeviceRaceTable`` of 524,287 buckets x 8
    slots x 256 float32 (1 KiB values, the YCSB core record of 10 fields x
    100 B; 4.0 GiB of values) loaded with 1,000,000 keys, then YCSB
@@ -63,8 +76,25 @@ plain version):
    ``decode_slab`` (median and 90th percentile of 200 calls) with a
    breakdown by step; the wall time of a chain epoch; and the card's busy
    share of one epoch from ``torch.profiler``.
-8. A ``{"kernels": [...]}`` line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+8. Serving path at full width, bf16 (the configs' dtype): qwen2-0.5b, then
+   rwkv6-7b, parameters drawn on the card from the seed.
+   ``make_prefill_step`` on 8 x 512 (qwen2, max_len 1024) / 4 x 512
+   (rwkv6) prompt tokens, 32 greedy ``make_decode_step`` steps from that
+   cache, then two ``ServingWorker`` replicas on one ``ExecutablePool``
+   (a cold start, then a pool hit). Logits finite, tokens in [0, vocab),
+   cache shapes and dtypes JAX's; launches exactly 24 ``flash_attention``
+   per qwen2 prefill and 32 ``wkv`` per rwkv6 prefill, none in decode.
+   Then prefill ms and tokens/s, decode ms per step, both bootstraps and
+   the card's idle share over a prefill (``torch.profiler``).
+9. Prefill -> decode consistency at full width in float32 (the port of
+   ``tests/test_models.py:86``): b = 1, s = 544, cut = 512, atol = rtol =
+   1e-3; ``forward_full`` and ``prefill`` run the kernels, ``decode_step``
+   the plain recurrence, so a wrong kernel shows as a mismatch.
+10. Model kernel times at the serving shapes: device time per launch, the
+    plain version's, ``scaled_dot_product_attention``'s (flash only; WKV
+    has no library call) and the bound.
+11. A ``{"kernels": [...]}`` line, then as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -86,8 +116,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import WorkRequest, make_cluster  # noqa: E402
+from repro_torch.elastic import ExecutablePool  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.race_lookup import ops  # noqa: E402
 from repro_torch.kernels.race_lookup import race_lookup as kern  # noqa: E402
 from repro_torch.kernels.race_lookup.ref import (  # noqa: E402
@@ -98,13 +135,25 @@ from repro_torch.kernels.serverless_stage.ref import (  # noqa: E402
     chunk_gather_ref)
 from repro_torch.kernels.serverless_stage.stage import (  # noqa: E402
     CHUNK, chunk_gather_cuda)
+from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
+    wkv_chunked_ref, wkv_sequential)
+from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda  # noqa: E402
 from repro_torch.kvs.race import (  # noqa: E402
     DeviceRaceTable, ShardedDeviceRaceTable, query_hashes, query_shards)
+from repro_torch.launch.serve import ServingWorker  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step, make_prefill_step)
+from repro_torch.models import (  # noqa: E402
+    count_params, count_params_config, decode_step, forward_full,
+    init_params, prefill)
+from repro_torch.models.model import unembed_chunk  # noqa: E402
 from repro_torch.serverless import (  # noqa: E402
     ChainRunner, ContainerPool, decode_slab, default_registry, encode_slab,
     expected_outputs)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12           # dense tensor-core peak, same sheet
+FP32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
 SOURCES = {
     "race_lookup_tiled":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
@@ -114,12 +163,18 @@ SOURCES = {
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "chunk_gather":
         "src/repro_torch/kernels/serverless_stage/csrc/serverless_stage.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "wkv": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
 }
 REPLACES = {
     "race_lookup_tiled": "src/repro/kernels/race_lookup/race_lookup.py:167",
     "race_lookup_scalar": "src/repro/kernels/race_lookup/race_lookup.py:76",
     "race_lookup_sharded": "src/repro/kernels/race_lookup/race_lookup.py:226",
     "chunk_gather": "src/repro/kernels/serverless_stage/stage.py:44",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:96",
+    "wkv": "src/repro/kernels/rwkv6/rwkv6.py:71",
 }
 #: the deployment the main path runs (see the module docstring)
 REAL_SIZE = dict(n_buckets=524_287, shard_buckets=131_071, n_shards=4,
@@ -130,6 +185,13 @@ CHAIN = ("extract", "transform", "load")
 #: and a ragged epoch up to the largest payload its transfer suite measures
 CHAIN_SIZE = dict(ks=(8, 32, 64), payload_bytes=1024, slab_payloads=16,
                   ragged_k=64, ragged_max_bytes=64 * 1024, seed=0)
+#: the serving path: each published model at full width and depth, bf16
+SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024),
+              dict(arch="rwkv6_7b", batch=4, prompt=512, max_len=1024))
+SERVE_STEPS = dict(decode_steps=32, worker_steps=8, seed=0)
+#: prefill->decode consistency in float32, at full width and depth
+CONSISTENCY = ("qwen2_0_5b", "rwkv6_7b")
+CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
 
 
 class PhaseError(RuntimeError):
@@ -892,13 +954,204 @@ def slab_host_times(device, n_payloads: int, nbytes: int,
 
 def chain_busy_share(device, cell: dict) -> dict:
     """One epoch of ``cell`` under ``torch.profiler``: the card's busy time
-    (the union of its kernel and copy spans) over the epoch's host wall
-    time. The profiler's own cost is inside that wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    over the epoch's host wall time (see :func:`profile_busy`)."""
     run_chain(device, cell)                                 # warm-up
+    r = dict(cell=cell["name"], **profile_busy(
+        lambda: run_chain(device, cell), device, "chunk_gather"))
+    print(f"profile chain {cell['name']}: epoch wall {r['wall_ms']:.3f} ms "
+          f"(profiled), card busy {r['busy_ms']:.6f} ms over "
+          f"{r['device_events']} device spans (chunk_gather "
+          f"{r['kernel_ms']:.6f} ms), idle share {_fmt_idle(r)}")
+    return r
+
+
+# ------------------------------------------- 8. model kernels: parity
+def _within(got, want, atol, rtol, what) -> float:
+    """Largest |got - want|; fails unless every element is within
+    atol + rtol * |want| and ``got`` is finite."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = int((err > atol + rtol * w.abs()).sum())
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bad == 0 and bool(torch.isfinite(g).all()),
+          f"{what}: {bad} elements out of tolerance (atol {atol}, rtol "
+          f"{rtol}; max abs err {worst})")
+    return worst
+
+
+#: the device function name of each model kernel, as the profiler shows it
+KERNEL_SYMBOLS = {"flash_attention": "flash_kernel", "wkv": "wkv_kernel"}
+#: (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len, dtype,
+#: scale of q/k/v). The sweep keeps the reference tests' inputs (randn *
+#: 0.5). The cases at the models' shapes draw at 1.5, so that the scores'
+#: spread is ~2 and each output row is a mean of a few keys, of size ~0.4:
+#: at 0.5 the softmax is nearly flat, a late row averages hundreds of
+#: values to ~0.02, and the bfloat16 tolerance of 2e-2 could not see a
+#: wrong kv tile there.
+FLASH_CASES = (
+    ("sweep 1", 2, 4, 2, 256, 256, 64, True, None, None, None, "float32",
+     0.5),
+    ("sweep 2", 1, 4, 4, 256, 256, 64, True, 128, 50.0, None, "float32",
+     0.5),
+    ("sweep 3", 1, 2, 1, 128, 128, 32, False, None, None, None, "float32",
+     0.5),
+    ("sweep 4", 1, 8, 2, 512, 512, 64, True, None, 30.0, None, "float32",
+     0.5),
+    ("sweep 5", 2, 2, 2, 256, 256, 128, True, 64, None, None, "float32",
+     0.5),
+    ("sweep 6", 1, 4, 2, 256, 256, 64, True, None, None, None, "bfloat16",
+     0.5),
+    ("qwen2 prefill", 8, 14, 2, 512, 512, 64, True, None, None, None,
+     "bfloat16", 1.5),
+    ("qwen2 prefill fp32", 8, 14, 2, 512, 512, 64, True, None, None, None,
+     "float32", 1.5),
+    ("ragged 200", 2, 14, 2, 200, 200, 64, True, None, None, None,
+     "bfloat16", 1.5),
+    ("ragged 544", 1, 14, 2, 544, 544, 64, True, None, None, None,
+     "float32", 1.5),
+    ("ragged 544 bf16", 1, 14, 2, 544, 544, 64, True, None, None, None,
+     "bfloat16", 1.5),
+    ("D 96 (phi3)", 1, 32, 32, 1024, 1024, 96, True, 512, 50.0, None,
+     "bfloat16", 1.5),
+    ("D 256 (gemma2)", 1, 8, 4, 1024, 1024, 256, True, 512, 50.0, None,
+     "bfloat16", 1.5),
+    ("kv_len 100", 1, 4, 2, 256, 256, 64, True, None, None, 100, "float32",
+     0.5),
+    ("kv_len 37 non-causal", 1, 4, 2, 256, 256, 64, False, None, None, 37,
+     "bfloat16", 0.5),
+    ("kv_len 300 qwen2", 2, 14, 2, 512, 512, 64, True, None, None, 300,
+     "bfloat16", 1.5),
+)
+#: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay)
+WKV_CASES = (
+    ("sweep 1", 2, 3, 128, 16, 16, "float32", "float32", False),
+    ("sweep 2", 1, 2, 64, 32, 32, "float32", "float32", False),
+    ("sweep 3", 1, 1, 256, 64, 64, "float32", "float32", False),
+    ("sweep 4", 2, 2, 96, 16, 32, "float32", "float32", False),
+    ("strong decay -4.25", 1, 2, 64, 16, 16, "float32", "float32", True),
+    ("rwkv6-7b prefill", 4, 64, 512, 64, 64, "bfloat16", "float32", False),
+    ("rwkv6-7b prefill fp32", 4, 64, 512, 64, 64, "float32", "float32",
+     False),
+)
+
+
+def _flash_inputs(gen, device, b, hq, hkv, sq, skv, d, dtype, scale=0.5):
+    dt = getattr(torch, dtype)
+    return [(torch.randn(shape, generator=gen, device=device) * scale).to(dt)
+            for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
+def _wkv_inputs(gen, device, b, h, s, dk, dv, dtype, wdtype, strong):
+    dt, wdt = getattr(torch, dtype), getattr(torch, wdtype)
+    scale = 1.0 if strong else 0.4
+    r, k = (torch.randn(b, h, s, dk, generator=gen, device=device) * scale
+            for _ in range(2))
+    v = torch.randn(b, h, s, dv, generator=gen, device=device) * scale
+    if strong:
+        logw = torch.full((b, h, s, dk), -4.25, device=device)
+        u = torch.zeros(h, dk, device=device)
+    else:
+        logw = torch.clamp(-torch.exp(torch.randn(
+            b, h, s, dk, generator=gen, device=device) * 0.3 - 0.6),
+            -4.25, -1e-6)
+        u = torch.randn(h, dk, generator=gen, device=device) * 0.3
+    return r.to(dt), k.to(dt), v.to(dt), logw.to(wdt), u
+
+
+def model_kernel_parity(device) -> dict:
+    """``flash_attention`` and ``wkv`` against their plain versions on the
+    card, at the reference tests' tolerances (flash: 2e-5 in float32, 2e-2
+    in bfloat16; wkv: 5e-4 / 1e-3 on float32 outputs and the state, 2e-2 on
+    a bfloat16 ``o``, whose rounding to bfloat16 can differ by one ulp).
+    Each flash case's tolerance must lie below its output's mean magnitude,
+    so that a wrong tile cannot hide inside it. Returns the largest
+    absolute difference seen per kernel."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    errs = {"flash_attention": 0.0, "wkv": 0.0}
+    for (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len,
+         dtype, scale) in FLASH_CASES:
+        q, k, v = _flash_inputs(gen, device, b, hq, hkv, sq, skv, d, dtype,
+                                scale)
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   cap=cap, kv_len=kv_len)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   cap=cap, kv_len=kv_len)
+        check(got.dtype == q.dtype and got.shape == q.shape,
+              f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        mean_abs = float(want.float().abs().mean())
+        check(tol < mean_abs, f"flash_attention {label}: tolerance {tol} "
+              f"is not below the output's mean magnitude {mean_abs}")
+        errs["flash_attention"] = max(errs["flash_attention"], _within(
+            got, want, tol, tol, f"flash_attention {label}"))
+    q, k, v = _flash_inputs(gen, device, 1, 2, 2, 256, 256, 64, "float32")
+    o1 = flash_ops.flash_attention(q, k, v, bq=64, bk=64)
+    o2 = flash_ops.flash_attention(q, k, v, bq=128, bk=32)
+    check(torch.equal(o1, o2), "flash_attention: the result depends on bq/bk")
+    _within(o1, flash_attention_ref(q, k, v), 2e-5, 2e-5,
+            "flash_attention block shapes")
+    for label, b, h, s, dk, dv, dtype, wdtype, strong in WKV_CASES:
+        r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dv, dtype,
+                                       wdtype, strong)
+        o, state = wkv_cuda(r, k, v, logw, u)
+        zero = torch.zeros((b, h, dk, dv), device=device)
+        want_o, want_state = wkv_chunked_ref(r, k, v, logw, u, zero)
+        check(o.dtype == r.dtype and state.dtype == torch.float32,
+              f"wkv {label}: {o.dtype} / {state.dtype}")
+        otol = 2e-2 if dtype == "bfloat16" else 5e-4
+        rtol = 2e-2 if dtype == "bfloat16" else 1e-3
+        e = max(_within(o, want_o, otol, rtol, f"wkv {label} o"),
+                _within(state, want_state, 5e-4, 1e-3,
+                        f"wkv {label} final state"))
+        if dtype == "float32":
+            e = max(e, _within(o, wkv_sequential(r, k, v, logw, u), 5e-4,
+                               1e-3, f"wkv {label} o vs wkv_sequential"))
+        errs["wkv"] = max(errs["wkv"], e)
+    torch.cuda.synchronize(device)
+    print(f"parity: flash_attention {len(FLASH_CASES) + 1} cases, wkv "
+          f"{len(WKV_CASES)} cases within tolerance of their plain versions "
+          f"(max abs err {errs})")
+    return errs
+
+
+# --------------------------------------------------- 9. the serving path
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _expected_cache(cfg, batch: int, max_len: int) -> list:
+    """(shape, dtype) of every cache leaf, as JAX's ``prefill`` gives them."""
+    dt = cfg.param_dtype
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        dk = cfg.d_model // cfg.n_heads
+        return [((L, batch, cfg.d_model), dt),
+                ((L, batch, cfg.n_heads, dk, dk), torch.float32),
+                ((L, batch, cfg.d_model), dt)]
+    lead = (L // 2, 2) if cfg.layer_pattern == "local_global" else (L,)
+    shape = (*lead, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    return [(shape, dt), (shape, dt)]
+
+
+def _leaves(cache) -> list:
+    return [cache["k"], cache["v"]] if isinstance(cache, dict) \
+        else list(cache)
+
+
+def profile_busy(fn, device, match: str, top: int = 0) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its host wall time, the
+    card's busy time (the union of its kernel and copy spans), the time of
+    the kernels whose name contains ``match``, the idle share and, with
+    ``top``, the ``top`` device functions by total time. The profiler's own
+    cost is inside the wall time."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_s = run_chain(device, cell)[1][0]
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall_s = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -906,19 +1159,304 @@ def chain_busy_share(device, cell: dict) -> dict:
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "chunk_gather" in e.name)
-    r = dict(cell=cell["name"], wall_ms=wall_s * 1e3, busy_ms=busy_us / 1e3,
-             kernel_ms=kernel_us / 1e3, device_events=len(spans),
-             idle_share=(1 - busy_us / (wall_s * 1e6)) if spans else None)
-    print(f"profile chain {cell['name']}: epoch wall {r['wall_ms']:.3f} ms "
-          f"(profiled), card busy {r['busy_ms']:.6f} ms over "
-          f"{len(spans)} device spans (chunk_gather {r['kernel_ms']:.6f} "
-          f"ms), idle share "
-          + (f"{r['idle_share']:.6f}" if spans else "not measured (the "
-             "profiler saw no device activity)"))
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.time_range.elapsed_us() for e in device_events
+                    if match in e.name)
+    by_name: dict = {}
+    for e in device_events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(wall_ms=wall_s * 1e3, busy_ms=busy_us / 1e3,
+                kernel_ms=kernel_us / 1e3, device_events=len(spans),
+                idle_share=(1 - busy_us / (wall_s * 1e6)) if spans else None,
+                top=[dict(name=name[:90], ms=ms, count=n)
+                     for name, (ms, n) in ranked])
+
+
+def _fmt_idle(r: dict) -> str:
+    return (f"{r['idle_share']:.6f}" if r["idle_share"] is not None
+            else "not measured (the profiler saw no device activity)")
+
+
+def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
+                worker_steps, seed, config=get_config) -> dict:
+    """One published model at full width and depth in bf16 (the config's
+    dtype), parameters drawn on the card from ``seed``: ``make_prefill_step``
+    on ``batch`` prompts of ``prompt`` tokens, ``decode_steps`` greedy steps
+    of ``make_decode_step`` from that cache, then two ``ServingWorker``s on
+    one ``ExecutablePool`` (a cold start, then a pool hit) decoding
+    ``worker_steps`` tokens each. Launch counters are cleared just before
+    each of the three and read just after. Then the times, while the model
+    is on the card. ``config`` maps the arch to its config (the tests
+    rehearse this phase on the CPU with the smoke configs)."""
+    cfg = config(arch)
+    kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device=device, dtype=torch.int32)
+    prefill_step = make_prefill_step(cfg, max_len)
+    step = make_decode_step(cfg)
+
+    on_card = torch.device(device).type == "cuda"
+    _build.launches.clear()
+    logits, cache = prefill_step(params, {"tokens": tokens})
+    _sync(device)
+    prefill_launches = dict(_build.launches)
+    want = {kernel: cfg.n_layers} if on_card else {}
+    check(prefill_launches == want,
+          f"{arch} prefill launched {prefill_launches}, expected {want}")
+    check(logits.shape == (batch, cfg.vocab)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
+          f"finite {bool(torch.isfinite(logits).all())}")
+    got = [(tuple(t.shape), t.dtype) for t in _leaves(cache)]
+    check(got == _expected_cache(cfg, batch, max_len),
+          f"{arch} cache {got} != JAX's {_expected_cache(cfg, batch, max_len)}")
+
+    _build.launches.clear()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    out = []
+    for i in range(decode_steps):
+        logits, cache = step(params, cache, tok, prompt + i)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    toks = torch.stack(out, 1)
+    _sync(device)
+    decode_launches = dict(_build.launches)
+    check(decode_launches == {}, f"{arch} decode launched {decode_launches}")
+    check(bool(finite) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab,
+          f"{arch} decode: logits finite {bool(finite)}, tokens in "
+          f"[{int(toks.min())}, {int(toks.max())}]")
+
+    _build.launches.clear()
+    pool = ExecutablePool()
+    workers, boot, wtoks = [], [], []
+    for _ in range(2):
+        w = ServingWorker(cfg, params, batch, max_len, pool=pool)
+        wtoks.append(w.decode_tokens(toks[:, -1].cpu().numpy(),
+                                     worker_steps))
+        workers.append(w)
+        boot.append(w.bootstrap_s)
+    _sync(device)
+    worker_launches = dict(_build.launches)
+    check(worker_launches == {}, f"{arch} workers launched {worker_launches}")
+    check((pool.stat_hits, pool.stat_misses) == (1, 1)
+          and workers[0].decode_fn is workers[1].decode_fn,
+          f"{arch} pool: hits {pool.stat_hits} misses {pool.stat_misses}")
+    check(all(t.shape == (batch, worker_steps) and t.min() >= 0
+              and t.max() < cfg.vocab for t in wtoks),
+          f"{arch} worker tokens out of range")
+    del workers
+    print(f"serve {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters {cfg.dtype} (the reference's analytic "
+          f"count_params_config: {count_params_config(cfg)}), drawn in "
+          f"{init_s:.3f} s): "
+          f"prefill {batch} x {prompt} launched {prefill_launches}; "
+          f"{decode_steps} greedy decode steps launched {decode_launches or 0}"
+          f"; two ServingWorkers (slots {batch}, max_len {max_len}) "
+          f"bootstrapped in {boot[0] * 1e3:.3f} ms (cold) and "
+          f"{boot[1] * 1e3:.3f} ms (pool hit) and decoded {worker_steps} "
+          f"tokens each; logits finite, tokens in [0, {cfg.vocab}), cache "
+          f"shapes and dtypes as JAX's")
+
+    # times, outside the counted runs
+    batch_in = {"tokens": tokens}
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        prefill_step(params, batch_in)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(walls[1:])
+    logits, cache = prefill_step(params, batch_in)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        logits, cache = step(params, cache, tok, prompt + i)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / decode_steps
+    decode_prof = profile_busy(
+        lambda: step(params, cache, tok, prompt + decode_steps), device,
+        KERNEL_SYMBOLS[kernel], top=6)
+    del cache, logits
+    prof = profile_busy(lambda: prefill_step(params, batch_in), device,
+                        KERNEL_SYMBOLS[kernel], top=6)
+    r = dict(arch=arch, n_layers=cfg.n_layers, n_params=n_params,
+             batch=batch, prompt=prompt, max_len=max_len, init_s=init_s,
+             prefill_launches=prefill_launches,
+             decode_launches=decode_launches, prefill_ms=prefill_ms,
+             prefill_walls_ms=walls, prefill_tokens_per_s=batch * prompt
+             / (prefill_ms / 1e3), decode_ms_per_step=decode_ms,
+             decode_tokens_per_s=batch / (decode_ms / 1e3),
+             bootstrap_cold_ms=boot[0] * 1e3, bootstrap_hit_ms=boot[1] * 1e3,
+             prefill_profile=prof, decode_profile=decode_prof)
+    print(f"time serve {arch}: prefill {batch} x {prompt} median "
+          f"{prefill_ms:.3f} ms ({r['prefill_tokens_per_s']:.1f} tokens/s; "
+          f"walls {[round(w, 3) for w in walls]} ms, first untimed); decode "
+          f"{decode_ms:.3f} ms per step ({r['decode_tokens_per_s']:.1f} "
+          f"tokens/s over {batch} slots); bootstrap cold "
+          f"{r['bootstrap_cold_ms']:.3f} ms, pool hit "
+          f"{r['bootstrap_hit_ms']:.3f} ms")
+    for what, p in (("prefill", prof), ("decode step", decode_prof)):
+        print(f"profile {what} {arch}: wall {p['wall_ms']:.3f} ms "
+              f"(profiled), card busy {p['busy_ms']:.3f} ms over "
+              f"{p['device_events']} device spans ({kernel} kernel "
+              f"{p['kernel_ms']:.3f} ms), idle share {_fmt_idle(p)}; "
+              f"top device functions (ms, count): "
+              + "; ".join(f"{t['name']} {t['ms']:.3f} x{t['count']}"
+                          for t in p["top"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return r
+
+
+# ------------------------------------ 10. prefill -> decode consistency
+def consistency(device, *, arch, s, cut, tol, seed,
+                config=get_config) -> dict:
+    """The port of ``tests/test_models.py::test_prefill_decode_consistency``
+    at full width in float32 (TF32 off): the teacher-forced logits of
+    ``forward_full`` over ``s`` tokens (the kernels) against ``prefill`` of
+    the first ``cut`` (the kernels) and ``decode_step`` over the rest (the
+    plain ``decode_attention`` / ``wkv_decode`` recurrence), at atol = rtol
+    = ``tol``, every layer."""
+    cfg = dataclasses.replace(config(arch), dtype="float32")
+    kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen,
+                           device=device, dtype=torch.int32)
+    _build.launches.clear()
+    hidden = forward_full(cfg, params, {"tokens": tokens})[0]
+    full = unembed_chunk(cfg, params, hidden[:, cut - 1:s - 1])
+    logits, cache = prefill(cfg, params, {"tokens": tokens[:, :cut]}, s)
+    _sync(device)
+    full_launches = dict(_build.launches)
+    want = {kernel: 2 * cfg.n_layers} \
+        if torch.device(device).type == "cuda" else {}
+    check(full_launches == want,
+          f"consistency {arch}: forward_full + prefill launched "
+          f"{full_launches}")
+    errs = [_within(logits, full[:, 0], tol, tol,
+                    f"consistency {arch}: prefill logits")]
+    _build.launches.clear()
+    for t in range(s - cut - 1):
+        logits, cache = decode_step(cfg, params, cache, tokens[:, cut + t],
+                                    cut + t)
+        errs.append(_within(logits, full[:, t + 1], tol, tol,
+                            f"consistency {arch}: decode step {t}"))
+    _sync(device)
+    check(dict(_build.launches) == {},
+          f"consistency {arch}: decode launched {dict(_build.launches)}")
+    print(f"consistency {arch} float32 (all {cfg.n_layers} layers, full "
+          f"width; s {s}, cut "
+          f"{cut}): prefill and {s - cut - 1} decode steps match "
+          f"forward_full within {tol} (max abs err {max(errs):.3e}; "
+          f"forward_full + prefill launched {full_launches})")
+    del params, cache, hidden, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, n_layers=cfg.n_layers, max_abs_err=max(errs))
+
+
+# --------------------------------------------- 11. model kernel timing
+def _graphed(fn, device):
+    """``fn`` captured in a CUDA graph; returns its replay. The plain WKV
+    scan is ~600 small launches a call, more than the card's launch queue
+    holds behind :func:`device_ms`'s spin kernel; a graph replays them as
+    one launch, back to back, which is the device time that function
+    measures."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()                                            # warm-up
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def measure_model_kernels(device) -> dict:
+    """Each model kernel at its serving shape: device time per launch, the
+    plain version's, the library call's (flash: SDPA, causal, GQA) and the
+    bound, the larger of bytes over 3.35 TB/s and operations over the peak
+    for their type (flash: bf16 tensor cores; wkv: float32 CUDA cores,
+    the type the kernel computes in)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    b, hq, hkv, s, d = 8, 14, 2, 512, 64            # qwen2-0.5b prefill
+    q, k, v = _flash_inputs(gen, device, b, hq, hkv, s, s, d, "bfloat16")
+    got = flash_attention_cuda(q, k, v)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    _within(got, lib, 2e-2, 2e-2, "flash_attention vs SDPA")
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    flops = 4 * b * hq * d * (s * (s + 1) // 2)      # QK^T and PV, causal
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    out["flash_attention"] = dict(
+        shape=f"q ({b}, {hq}, {s}, {d}) bf16, k/v ({b}, {hkv}, {s}, {d}), "
+              f"causal",
+        ms=device_ms(lambda: flash_attention_cuda(q, k, v), 50, device),
+        plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50, device),
+        library="torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True)",
+        bytes=nbytes, flops=flops, bound_ms=max(by_bytes, by_ops) * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations")
+    del q, k, v, got, lib
+    b, h, s, dk = 4, 64, 512, 64                    # rwkv6-7b prefill
+    c = 16
+    r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dk, "bfloat16",
+                                   "float32", False)
+    o, st = wkv_cuda(r, k, v, logw, u)
+    zero = torch.zeros((b, h, dk, dk), device=device)
+    nbytes = (2 * (r.numel() + k.numel() + v.numel() + o.numel())
+              + 4 * (logw.numel() + u.numel() + st.numel()))
+    pairs = c * (c - 1) // 2                         # strictly lower
+    per_chunk = (2 * c * dk * dk                     # r_dec @ S
+                 + 2 * pairs * dk + 2 * pairs * dk   # att, att @ v
+                 + 4 * c * dk + 2 * c * dk           # bonus, bonus * v
+                 + 2 * c * dk * dk + dk * dk         # state update
+                 + 6 * c * dk)                       # decay factors
+    flops = per_chunk * b * h * (s // c)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    out["wkv"] = dict(
+        shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16, logw float32, chunk {c}",
+        ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u), 20, device),
+        plain_ms=device_ms(_graphed(
+            lambda: wkv_chunked_ref(r, k, v, logw, u, zero), device), 4,
+            device),
+        library_ms=None, library="none",
+        bytes=nbytes, flops=flops, bound_ms=max(by_bytes, by_ops) * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        ctas=b * h, sms=torch.cuda.get_device_properties(device)
+        .multi_processor_count)
+    for name, m in out.items():
+        lib = (f"{m['library_ms']:.6f} ms" if m["library_ms"] is not None
+               else "none")
+        print(f"time {name} at {m['shape']}: kernel {m['ms']:.6f} ms, plain "
+              f"{m['plain_ms']:.6f} ms, library {lib}, bound "
+              f"{m['bound_ms']:.6f} ms ({m['bound_by']}; {m['bytes']} B, "
+              f"{m['flops']} FLOP)"
+              + (f"; {m['ctas']} CTAs on {m['sms']} SMs"
+                 if "ctas" in m else ""))
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -928,9 +1466,15 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     device_report()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False (float32 products in "
+          "full float32)")
     build_kernels()
     errs = kernel_parity(device)
     errs["chunk_gather"] = stage_parity(device)
+    errs.update(model_kernel_parity(device))
     cfg = REAL_SIZE
     res = main_path(device, **cfg,
                     measure=lambda t, wl, sh: measure_table(t, wl, sh,
@@ -941,15 +1485,32 @@ def main() -> int:
             for n, b in ((16, 1024), (16, 64 * 1024))}
     k64 = chain_cells(**CHAIN_SIZE)[len(CHAIN_SIZE["ks"]) - 1]
     busy = chain_busy_share(device, k64)
+    serving = {m["arch"]: serve_model(device, **m, **SERVE_STEPS)
+               for m in SERVE_SIZE}
+    consistent = [consistency(device, arch=arch, **CONSISTENCY_SIZE)
+                  for arch in CONSISTENCY]
+    model_times = measure_model_kernels(device)
     torch.cuda.synchronize(device)
     launches = dict(res["launches"], **chain["launches"])
+    for row in serving.values():
+        launches.update(row["prefill_launches"])
     top = max(cfg["batches"])
     kernels = []
     for name in ("race_lookup_tiled", "race_lookup_scalar",
-                 "race_lookup_sharded", "chunk_gather"):
+                 "race_lookup_sharded", "chunk_gather", "flash_attention",
+                 "wkv"):
         n = launches.get(name, 0)
         check(n > 0, f"{name} was not launched on the main path")
-        if name == "chunk_gather":
+        bound_by = "bytes"
+        if name in model_times:
+            r = model_times[name]
+            arch = "rwkv6_7b" if name == "wkv" else "qwen2_0_5b"
+            bound_by = r["bound_by"]
+            extra = dict(library_ms=r["library_ms"], library=r["library"],
+                         shape=r["shape"], bytes=r["bytes"],
+                         flops=r["flops"], serve=serving[arch],
+                         consistency=consistent)
+        elif name == "chunk_gather":
             shape = GATHER_SHAPES[0][0]
             r = gather[shape]
             extra = dict(library_ms=r["library_ms"],
@@ -967,7 +1528,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=n, max_abs_err=errs[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="bytes", **extra))
+            bound_by=bound_by, **extra))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def on_device(device, arrays, dtypes):
+def on_device(device, arrays, dtypes, contiguous: bool = True):
     """Move ``arrays`` (tensors or numpy arrays) to one device: that of the
     tensors among them, else ``resolve_device(device)``. Each becomes a
-    contiguous tensor of its entry in ``dtypes`` (``None`` keeps its dtype).
+    tensor of its entry in ``dtypes`` (``None`` keeps its dtype), made
+    contiguous unless ``contiguous`` is false.
     Raises ``ValueError`` when the tensors lie on several devices or
     ``device`` names another kind of device than theirs."""
     devs = {a.device for a in arrays if isinstance(a, torch.Tensor)}
@@ -43,6 +44,7 @@ def on_device(device, arrays, dtypes):
     def conv(a, dtype):
         t = a if isinstance(a, torch.Tensor) \
             else torch.as_tensor(np.asarray(a))
-        return t.to(device=dev, dtype=dtype).contiguous()
+        t = t.to(device=dev, dtype=dtype)
+        return t.contiguous() if contiguous else t
 
     return [conv(a, dtype) for a, dtype in zip(arrays, dtypes)]

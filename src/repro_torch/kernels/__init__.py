@@ -7,4 +7,7 @@ them:
                      in device memory (the meta-server / DrTM-KV data path)
   serverless_stage/  the masked chunk gather that packs and unpacks the
                      serverless chain hop's payload slabs
+  flash_attention/   blockwise GQA attention with an online softmax (the
+                     models' full-sequence attention)
+  rwkv6/             the chunked RWKV-6 WKV scan (rwkv6's time mix)
 """

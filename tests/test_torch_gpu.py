@@ -8,12 +8,22 @@ and skips, with its reason, when there is none. On a machine with a card:
 This file imports no JAX: the machine with the card has none.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_cluster
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref, wkv_sequential
+from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda
 from repro_torch.kernels.race_lookup import ops, race_lookup as kern
 from repro_torch.kernels.race_lookup.ref import (
     make_table, race_lookup_ref, race_lookup_sharded_ref)
@@ -21,6 +31,7 @@ from repro_torch.kernels.serverless_stage import ops as stage_ops
 from repro_torch.kernels.serverless_stage.ref import chunk_gather_ref
 from repro_torch.kernels.serverless_stage.stage import chunk_gather_cuda
 from repro_torch.kvs import DeviceRaceTable, ShardedDeviceRaceTable
+from repro_torch.models import decode_step, forward_full, init_params, prefill
 from repro_torch.serverless import (ChainRunner, ContainerPool,
                                     default_registry, expected_outputs)
 
@@ -228,3 +239,185 @@ def test_krcore_chain_epoch_on_the_card_equals_the_cpu(cuda):
         reports[str(device)] = (rep.total_us, rep.transfer_us,
                                 [vars(h) for h in rep.hops])
     assert reports[str(cuda)] == reports["cpu"]
+
+
+# ------------------------------------------------- flash attention and WKV
+@pytest.fixture
+def fp32_cuda(cuda):
+    """The card with both TF32 switches off: float32 products in full
+    float32, as the plain versions' tolerances assume."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _qkv(cuda, b, hq, hkv, sq, d, dtype, seed=0, skv=None):
+    g = torch.Generator("cpu").manual_seed(seed)
+    skv = sq if skv is None else skv
+    shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
+    return [(torch.randn(s, generator=g) * 0.5).to(cuda, dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,cap,kv_len,dtype", [
+    (2, 4, 2, 256, 256, 64, True, None, None, None, torch.float32),
+    (1, 4, 4, 256, 256, 64, True, 128, 50.0, None, torch.float32),
+    (1, 2, 1, 128, 128, 32, False, None, None, None, torch.float32),
+    (1, 8, 2, 512, 512, 64, True, None, 30.0, None, torch.float32),
+    (2, 2, 2, 256, 256, 128, True, 64, None, None, torch.float32),
+    (1, 4, 2, 256, 256, 64, True, None, None, None, torch.bfloat16),
+    (2, 14, 2, 200, 200, 64, True, None, None, None, torch.bfloat16),
+    (1, 14, 2, 544, 544, 64, True, None, None, None, torch.float32),
+    (1, 4, 2, 33, 77, 96, False, None, 50.0, None, torch.float32),
+    (1, 8, 4, 130, 130, 256, True, 48, 50.0, None, torch.bfloat16),
+    (1, 4, 2, 64, 64, 16, True, None, None, None, torch.float32),
+    (1, 4, 2, 256, 256, 64, True, None, None, 100, torch.float32),
+    (1, 4, 2, 256, 256, 64, False, None, None, 37, torch.bfloat16),
+])
+def test_flash_kernel_equals_plain(fp32_cuda, b, hq, hkv, sq, skv, d, causal,
+                                   window, cap, kv_len, dtype):
+    q, k, v = _qkv(fp32_cuda, b, hq, hkv, sq, d, dtype, skv=skv)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window, cap=cap,
+                               kv_len=kv_len)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               cap=cap, kv_len=kv_len)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_takes_strided_views_and_counts(fp32_cuda):
+    """The model's head-transposed projections go in without a copy."""
+    b, s, hq, hkv, d = 2, 96, 14, 2, 64
+    g = torch.Generator("cpu").manual_seed(3)
+    q = torch.randn(b, s, hq, d, generator=g).to(fp32_cuda).transpose(1, 2)
+    kv = torch.randn(b, s, hkv, d, generator=g).to(fp32_cuda).transpose(1, 2)
+    _build.launches.clear()
+    got = flash_ops.flash_attention(q, kv, kv)
+    flash_ops.flash_attention(q, kv, kv, impl="ref")
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention": 1}
+    torch.testing.assert_close(got, flash_attention_ref(q, kv, kv),
+                               atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.zeros(1, 1, 4, 300, device=fp32_cuda),)
+                             * 3)
+
+
+def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,
+                wdtype=torch.float32, seed=7, strong=False):
+    g = torch.Generator("cpu").manual_seed(seed)
+    scale = 1.0 if strong else 0.4
+    r, k = (torch.randn(b, h, s, dk, generator=g) * scale for _ in range(2))
+    v = torch.randn(b, h, s, dv, generator=g) * scale
+    if strong:
+        logw = torch.full((b, h, s, dk), -4.25)
+        u = torch.zeros(h, dk)
+    else:
+        logw = torch.clamp(-torch.exp(torch.randn(b, h, s, dk, generator=g)
+                                      * 0.3 - 0.6), -4.25, -1e-6)
+        u = torch.randn(h, dk, generator=g) * 0.3
+    return (r.to(cuda, dtype), k.to(cuda, dtype), v.to(cuda, dtype),
+            logw.to(cuda, wdtype), u.to(cuda))
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype,wdtype,strong,state", [
+    (2, 3, 128, 16, 16, 16, torch.float32, torch.float32, False, False),
+    (1, 2, 64, 32, 32, 16, torch.float32, torch.float32, False, False),
+    (1, 1, 256, 64, 64, 16, torch.float32, torch.float32, False, False),
+    (2, 2, 96, 16, 32, 16, torch.float32, torch.float32, False, False),
+    (1, 2, 64, 16, 16, 16, torch.float32, torch.float32, True, False),
+    (2, 4, 128, 64, 64, 16, torch.bfloat16, torch.float32, False, False),
+    (2, 4, 128, 64, 64, 16, torch.bfloat16, torch.bfloat16, False, True),
+    (1, 2, 48, 16, 32, 8, torch.float32, torch.float32, False, True),
+    (1, 1, 8, 64, 64, 16, torch.float32, torch.float32, False, False),
+])
+def test_wkv_kernel_equals_plain(fp32_cuda, b, h, s, dk, dv, chunk, dtype,
+                                 wdtype, strong, state):
+    r, k, v, logw, u = _wkv_inputs(fp32_cuda, b, h, s, dk, dv, dtype, wdtype,
+                                   strong=strong)
+    s0 = (torch.randn(b, h, dk, dv, generator=torch.Generator("cpu")
+                      .manual_seed(1)).to(fp32_cuda) if state
+          else torch.zeros(b, h, dk, dv, device=fp32_cuda))
+    o, st = wkv_cuda(r, k, v, logw, u, s0 if state else None, chunk=chunk)
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(o.float()).all()
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(st, want_st, atol=5e-4, rtol=1e-3)
+    if not state and dtype == torch.float32:
+        torch.testing.assert_close(o, wkv_sequential(r, k, v, logw, u),
+                                   atol=5e-4, rtol=1e-3)
+
+
+def test_wkv_counts_and_refuses_ragged_lengths(cuda):
+    r, k, v, logw, u = _wkv_inputs(cuda, 1, 2, 64, 16, 16)
+    _build.launches.clear()
+    wkv_ops.wkv(r, k, v, logw, u)
+    wkv_ops.wkv(r, k, v, logw, u, impl="ref")
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv": 1}
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        wkv_cuda(*(t[:, :, :40] for t in (r, k, v, logw)), u)
+    with pytest.raises(ValueError, match="chunk 32"):
+        wkv_cuda(r, k, v, logw, u, chunk=32)
+
+
+# --------------------------------------------------- models through kernels
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmo_1b", "phi3_mini_3_8b",
+                                  "gemma2_2b", "llava_next_mistral_7b",
+                                  "rwkv6_7b"])
+def test_smoke_models_through_kernels_equal_plain(fp32_cuda, arch):
+    """forward_full, prefill and decode on the card (the kernels) against
+    the same float32 parameters on the CPU (the plain versions), with the
+    launches of each step counted."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
+    gparams = _to(params, fp32_cuda)
+    rng = np.random.default_rng(1)
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 48 - n_img)).astype(np.int32))}
+    if n_img:
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, n_img, 1024)).astype(np.float32))
+    gbatch = {k: v.to(fp32_cuda) for k, v in batch.items()}
+    kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
+    _build.launches.clear()
+    hidden = forward_full(cfg, gparams, gbatch)[0]
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {kernel: cfg.n_layers}
+    torch.testing.assert_close(hidden.cpu(),
+                               forward_full(cfg, params, batch)[0],
+                               atol=1e-4, rtol=1e-4)
+    pre = dict(batch, tokens=batch["tokens"][:, :32 - n_img])
+    gpre = {k: v.to(fp32_cuda) for k, v in pre.items()}
+    logits, cache = prefill(cfg, gparams, gpre, 64)
+    want_logits, want_cache = prefill(cfg, params, pre, 64)
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
+                               rtol=1e-4)
+    _build.launches.clear()
+    for t in range(4):
+        tok = batch["tokens"][:, 32 - n_img + t]
+        logits, cache = decode_step(cfg, gparams, cache, tok.to(fp32_cuda),
+                                    32 + t)
+        want_logits, want_cache = decode_step(cfg, params, want_cache, tok,
+                                              32 + t)
+        torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
+                                   rtol=1e-4)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

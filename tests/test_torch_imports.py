@@ -30,6 +30,13 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.kernels.race_lookup.race_lookup\n"
             "import repro_torch.core, repro_torch.serverless\n"
             "import repro_torch.kernels.serverless_stage.ops\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.rwkv6.ops\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.elastic, repro_torch.launch.steps\n"
+            "import repro_torch.launch.serve\n"
+            "from repro_torch.configs import all_archs, get_config\n"
+            "[get_config(a) for a in all_archs()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
