@@ -32,11 +32,17 @@ plain version):
    S = 200 and 544, D = 96 and 256 with window 512 and cap 50 in bf16, and
    ``kv_len`` cases, at 2e-5 (float32) / 2e-2 (bf16); the cases at the
    models' shapes draw inputs large enough that each tolerance lies below
-   the output's mean magnitude, which the phase checks. ``wkv``: the four ``test_wkv_sweep``
-   cases, decay at the -4.25 clamp, and rwkv6-7b's shape (4, 64, 512, 64)
-   with bf16 r/k/v and float32 logw, then in float32: ``o`` and the final
-   state against the plain chunked version, ``o`` against
-   ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o`` at 2e-2).
+   the output's mean magnitude, which the phase checks; and the result is
+   the same bit for bit whatever ``bq``/``bk`` (float32 and bf16).
+   ``wkv``: the four ``test_wkv_sweep`` cases, decay at the -4.25 clamp,
+   and rwkv6-7b's shape (4, 64, 512, 64) with bf16 r/k/v and float32 logw,
+   then in float32: ``o`` and the final state against the plain chunked
+   version, ``o`` against ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o``
+   at 2e-2). Every case runs through the route its dispatch picks
+   (``flash_route``: bf16 with D <= 128 on ``flash_attention_mma``, the
+   rest on ``flash_attention``; ``wkv_route``: 64 x 64 heads in chunks of
+   16 on ``wkv_split``, the rest on ``wkv``), and the phase checks that
+   route launched.
 4. Lookup path at real size: a ``DeviceRaceTable`` of 524,287 buckets x 8
    slots x 256 float32 (1 KiB values, the YCSB core record of 10 fields x
    100 B; 4.0 GiB of values) loaded with 1,000,000 keys, then YCSB
@@ -82,28 +88,42 @@ plain version):
    (rwkv6) prompt tokens, 32 greedy ``make_decode_step`` steps from that
    cache, then two ``ServingWorker`` replicas on one ``ExecutablePool``
    (a cold start, then a pool hit). Logits finite, tokens in [0, vocab),
-   cache shapes and dtypes JAX's; launches exactly 24 ``flash_attention``
-   per qwen2 prefill and 32 ``wkv`` per rwkv6 prefill, none in decode.
+   cache shapes and dtypes JAX's; launches exactly 24
+   ``flash_attention_mma`` per qwen2 prefill and 32 ``wkv_split`` per
+   rwkv6 prefill, none in decode.
    Then prefill ms and tokens/s, decode ms per step, both bootstraps and
    the card's idle share over a prefill (``torch.profiler``).
 9. Prefill -> decode consistency at full width in float32 (the port of
    ``tests/test_models.py:86``): b = 1, s = 544, cut = 512, atol = rtol =
-   1e-3; ``forward_full`` and ``prefill`` run the kernels, ``decode_step``
-   the plain recurrence, so a wrong kernel shows as a mismatch.
-10. Model kernel times at the serving shapes: device time per launch, the
-    plain version's, ``scaled_dot_product_attention``'s (flash only; WKV
-    has no library call) and the bound.
-11. A ``{"kernels": [...]}`` line, then as the last line
+   1e-3; ``forward_full`` and ``prefill`` run the kernels (qwen2 on the
+   float32 ``flash_attention`` route, rwkv6 on ``wkv_split``),
+   ``decode_step`` the plain recurrence, so a wrong kernel shows as a
+   mismatch.
+10. Model kernel times, each entry point at the shape its main-path run
+    gives it: device time per launch, its ratio to its bound and to
+    ``scaled_dot_product_attention`` (flash; WKV has no library call), the
+    plain version's time. The one-CTA-a-head ``wkv`` route is on no
+    main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
+    timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
+    tokens it would scan, and held there on ``o`` and the final state.
+    Then each new kernel's registers, stack, spills and static shared
+    memory from the ptxas report of the build.
+11. A ``{"kernels": [...]}`` line with every C entry point (its launches
+    are those of every main-path run above: lookups, chain hops, prefills
+    and the float32 consistency prefills; each entry point but ``wkv``
+    must have launched there), then as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import itertools
 import math
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -122,7 +142,7 @@ from repro_torch.elastic import ExecutablePool  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_cuda)
+    flash_attention_cuda, flash_route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.race_lookup import ops  # noqa: E402
@@ -137,7 +157,7 @@ from repro_torch.kernels.serverless_stage.stage import (  # noqa: E402
     CHUNK, chunk_gather_cuda)
 from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
     wkv_chunked_ref, wkv_sequential)
-from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda  # noqa: E402
+from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda, wkv_route  # noqa: E402
 from repro_torch.kvs.race import (  # noqa: E402
     DeviceRaceTable, ShardedDeviceRaceTable, query_hashes, query_shards)
 from repro_torch.launch.serve import ServingWorker  # noqa: E402
@@ -163,8 +183,11 @@ SOURCES = {
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "chunk_gather":
         "src/repro_torch/kernels/serverless_stage/csrc/serverless_stage.cu",
+    "flash_attention_mma":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "wkv_split": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
     "wkv": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
 }
 REPLACES = {
@@ -172,10 +195,15 @@ REPLACES = {
     "race_lookup_scalar": "src/repro/kernels/race_lookup/race_lookup.py:76",
     "race_lookup_sharded": "src/repro/kernels/race_lookup/race_lookup.py:226",
     "chunk_gather": "src/repro/kernels/serverless_stage/stage.py:44",
+    "flash_attention_mma":
+        "src/repro/kernels/flash_attention/flash_attention.py:96",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:96",
+    "wkv_split": "src/repro/kernels/rwkv6/rwkv6.py:71",
     "wkv": "src/repro/kernels/rwkv6/rwkv6.py:71",
 }
+#: every C entry point of the port, in the order of the ``kernels`` line
+ENTRY_POINTS = tuple(SOURCES)
 #: the deployment the main path runs (see the module docstring)
 REAL_SIZE = dict(n_buckets=524_287, shard_buckets=131_071, n_shards=4,
                  nslot=8, vdim=256, n_keys=1_000_000,
@@ -186,11 +214,15 @@ CHAIN = ("extract", "transform", "load")
 CHAIN_SIZE = dict(ks=(8, 32, 64), payload_bytes=1024, slab_payloads=16,
                   ragged_k=64, ragged_max_bytes=64 * 1024, seed=0)
 #: the serving path: each published model at full width and depth, bf16
-SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024),
-              dict(arch="rwkv6_7b", batch=4, prompt=512, max_len=1024))
+#: and the route each prefill must launch once a layer
+SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024,
+                   route="flash_attention_mma"),
+              dict(arch="rwkv6_7b", batch=4, prompt=512, max_len=1024,
+                   route="wkv_split"))
 SERVE_STEPS = dict(decode_steps=32, worker_steps=8, seed=0)
-#: prefill->decode consistency in float32, at full width and depth
-CONSISTENCY = ("qwen2_0_5b", "rwkv6_7b")
+#: prefill->decode consistency in float32, at full width and depth: each
+#: arch and the route its forward_full and prefill must launch
+CONSISTENCY = {"qwen2_0_5b": "flash_attention", "rwkv6_7b": "wkv_split"}
 CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
 
 
@@ -979,8 +1011,11 @@ def _within(got, want, atol, rtol, what) -> float:
     return worst
 
 
-#: the device function name of each model kernel, as the profiler shows it
-KERNEL_SYMBOLS = {"flash_attention": "flash_kernel", "wkv": "wkv_kernel"}
+#: the device function name of each model kernel's route, as the profiler
+#: shows it
+KERNEL_SYMBOLS = {"flash_attention_mma": "flash_mma_kernel",
+                  "flash_attention": "flash_kernel",
+                  "wkv_split": "wkv_split_kernel", "wkv": "wkv_kernel"}
 #: (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len, dtype,
 #: scale of q/k/v). The sweep keeps the reference tests' inputs (randn *
 #: 0.5). The cases at the models' shapes draw at 1.5, so that the scores'
@@ -1058,22 +1093,37 @@ def _wkv_inputs(gen, device, b, h, s, dk, dv, dtype, wdtype, strong):
     return r.to(dt), k.to(dt), v.to(dt), logw.to(wdt), u
 
 
+def _route_of_call(fn):
+    """Run ``fn``; return its result and the one entry point it launched."""
+    before = dict(_build.launches)
+    out = fn()
+    ran = [n for n in _build.launches if _build.launches[n] != before.get(n)]
+    check(len(ran) == 1, f"expected one launch, got {ran}")
+    return out, ran[0]
+
+
 def model_kernel_parity(device) -> dict:
     """``flash_attention`` and ``wkv`` against their plain versions on the
-    card, at the reference tests' tolerances (flash: 2e-5 in float32, 2e-2
-    in bfloat16; wkv: 5e-4 / 1e-3 on float32 outputs and the state, 2e-2 on
-    a bfloat16 ``o``, whose rounding to bfloat16 can differ by one ulp).
-    Each flash case's tolerance must lie below its output's mean magnitude,
-    so that a wrong tile cannot hide inside it. Returns the largest
-    absolute difference seen per kernel."""
+    card, each case through the route its dispatch picks (checked against
+    the route that launched), at the reference tests' tolerances (flash:
+    2e-5 in float32, 2e-2 in bfloat16; wkv: 5e-4 / 1e-3 on float32 outputs
+    and the state, 2e-2 on a bfloat16 ``o``, whose rounding to bfloat16 can
+    differ by one ulp). Each flash case's tolerance must lie below its
+    output's mean magnitude, so that a wrong tile cannot hide inside it.
+    Returns the largest absolute difference seen per route."""
     gen = torch.Generator(device=device).manual_seed(5)
-    errs = {"flash_attention": 0.0, "wkv": 0.0}
+    errs = dict.fromkeys(("flash_attention_mma", "flash_attention",
+                          "wkv_split", "wkv"), 0.0)
+    cases: dict = {}
     for (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len,
          dtype, scale) in FLASH_CASES:
         q, k, v = _flash_inputs(gen, device, b, hq, hkv, sq, skv, d, dtype,
                                 scale)
-        got = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   cap=cap, kv_len=kv_len)
+        got, route = _route_of_call(lambda: flash_attention_cuda(
+            q, k, v, causal=causal, window=window, cap=cap, kv_len=kv_len))
+        check(route == flash_route(q.dtype, d),
+              f"flash_attention {label} ran {route}")
+        cases.setdefault(route, []).append(label)
         want = flash_attention_ref(q, k, v, causal=causal, window=window,
                                    cap=cap, kv_len=kv_len)
         check(got.dtype == q.dtype and got.shape == q.shape,
@@ -1082,18 +1132,24 @@ def model_kernel_parity(device) -> dict:
         mean_abs = float(want.float().abs().mean())
         check(tol < mean_abs, f"flash_attention {label}: tolerance {tol} "
               f"is not below the output's mean magnitude {mean_abs}")
-        errs["flash_attention"] = max(errs["flash_attention"], _within(
-            got, want, tol, tol, f"flash_attention {label}"))
-    q, k, v = _flash_inputs(gen, device, 1, 2, 2, 256, 256, 64, "float32")
-    o1 = flash_ops.flash_attention(q, k, v, bq=64, bk=64)
-    o2 = flash_ops.flash_attention(q, k, v, bq=128, bk=32)
-    check(torch.equal(o1, o2), "flash_attention: the result depends on bq/bk")
-    _within(o1, flash_attention_ref(q, k, v), 2e-5, 2e-5,
-            "flash_attention block shapes")
+        errs[route] = max(errs[route], _within(
+            got, want, tol, tol, f"flash_attention {label} ({route})"))
+    for dtype, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        q, k, v = _flash_inputs(gen, device, 1, 2, 2, 256, 256, 64, dtype)
+        o1 = flash_ops.flash_attention(q, k, v, bq=64, bk=64)
+        o2 = flash_ops.flash_attention(q, k, v, bq=128, bk=32)
+        check(torch.equal(o1, o2),
+              f"flash_attention {dtype}: the result depends on bq/bk")
+        _within(o1, flash_attention_ref(q, k, v), tol, tol,
+                f"flash_attention {dtype} block shapes")
     for label, b, h, s, dk, dv, dtype, wdtype, strong in WKV_CASES:
         r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dv, dtype,
                                        wdtype, strong)
-        o, state = wkv_cuda(r, k, v, logw, u)
+        (o, state), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw,
+                                                            u))
+        check(route == wkv_route(dk, dv, min(16, s)),
+              f"wkv {label} ran {route}")
+        cases.setdefault(route, []).append(label)
         zero = torch.zeros((b, h, dk, dv), device=device)
         want_o, want_state = wkv_chunked_ref(r, k, v, logw, u, zero)
         check(o.dtype == r.dtype and state.dtype == torch.float32,
@@ -1106,11 +1162,11 @@ def model_kernel_parity(device) -> dict:
         if dtype == "float32":
             e = max(e, _within(o, wkv_sequential(r, k, v, logw, u), 5e-4,
                                1e-3, f"wkv {label} o vs wkv_sequential"))
-        errs["wkv"] = max(errs["wkv"], e)
+        errs[route] = max(errs[route], e)
     torch.cuda.synchronize(device)
-    print(f"parity: flash_attention {len(FLASH_CASES) + 1} cases, wkv "
+    print(f"parity: flash_attention {len(FLASH_CASES) + 2} cases, wkv "
           f"{len(WKV_CASES)} cases within tolerance of their plain versions "
-          f"(max abs err {errs})")
+          f"(max abs err by route {errs}); cases by route {cases}")
     return errs
 
 
@@ -1162,7 +1218,7 @@ def profile_busy(fn, device, match: str, top: int = 0) -> dict:
     device_events = [e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_us = sum(e.time_range.elapsed_us() for e in device_events
-                    if match in e.name)
+                    if match and match in e.name)
     by_name: dict = {}
     for e in device_events:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -1181,18 +1237,18 @@ def _fmt_idle(r: dict) -> str:
 
 
 def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
-                worker_steps, seed, config=get_config) -> dict:
+                worker_steps, seed, route=None, config=get_config) -> dict:
     """One published model at full width and depth in bf16 (the config's
     dtype), parameters drawn on the card from ``seed``: ``make_prefill_step``
     on ``batch`` prompts of ``prompt`` tokens, ``decode_steps`` greedy steps
-    of ``make_decode_step`` from that cache, then two ``ServingWorker``s on
+    of ``make_decode_step`` from its cache, then two ``ServingWorker``s on
     one ``ExecutablePool`` (a cold start, then a pool hit) decoding
     ``worker_steps`` tokens each. Launch counters are cleared just before
-    each of the three and read just after. Then the times, while the model
-    is on the card. ``config`` maps the arch to its config (the tests
-    rehearse this phase on the CPU with the smoke configs)."""
+    each of the three and read just after; on the card the prefill must
+    launch ``route`` once a layer and nothing else. Then the times, while
+    the model is on the card. ``config`` maps the arch to its config (the
+    tests rehearse this phase on the CPU with the smoke configs)."""
     cfg = config(arch)
-    kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device)
@@ -1209,7 +1265,7 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     logits, cache = prefill_step(params, {"tokens": tokens})
     _sync(device)
     prefill_launches = dict(_build.launches)
-    want = {kernel: cfg.n_layers} if on_card else {}
+    want = {route: cfg.n_layers} if on_card else {}
     check(prefill_launches == want,
           f"{arch} prefill launched {prefill_launches}, expected {want}")
     check(logits.shape == (batch, cfg.vocab)
@@ -1290,10 +1346,10 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     decode_ms = (time.perf_counter() - t0) * 1e3 / decode_steps
     decode_prof = profile_busy(
         lambda: step(params, cache, tok, prompt + decode_steps), device,
-        KERNEL_SYMBOLS[kernel], top=6)
+        KERNEL_SYMBOLS.get(route), top=6)
     del cache, logits
     prof = profile_busy(lambda: prefill_step(params, batch_in), device,
-                        KERNEL_SYMBOLS[kernel], top=6)
+                        KERNEL_SYMBOLS.get(route), top=6)
     r = dict(arch=arch, n_layers=cfg.n_layers, n_params=n_params,
              batch=batch, prompt=prompt, max_len=max_len, init_s=init_s,
              prefill_launches=prefill_launches,
@@ -1313,7 +1369,7 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     for what, p in (("prefill", prof), ("decode step", decode_prof)):
         print(f"profile {what} {arch}: wall {p['wall_ms']:.3f} ms "
               f"(profiled), card busy {p['busy_ms']:.3f} ms over "
-              f"{p['device_events']} device spans ({kernel} kernel "
+              f"{p['device_events']} device spans ({route} kernel "
               f"{p['kernel_ms']:.3f} ms), idle share {_fmt_idle(p)}; "
               f"top device functions (ms, count): "
               + "; ".join(f"{t['name']} {t['ms']:.3f} x{t['count']}"
@@ -1325,16 +1381,16 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
 
 
 # ------------------------------------ 10. prefill -> decode consistency
-def consistency(device, *, arch, s, cut, tol, seed,
+def consistency(device, *, arch, s, cut, tol, seed, route=None,
                 config=get_config) -> dict:
     """The port of ``tests/test_models.py::test_prefill_decode_consistency``
     at full width in float32 (TF32 off): the teacher-forced logits of
     ``forward_full`` over ``s`` tokens (the kernels) against ``prefill`` of
     the first ``cut`` (the kernels) and ``decode_step`` over the rest (the
     plain ``decode_attention`` / ``wkv_decode`` recurrence), at atol = rtol
-    = ``tol``, every layer."""
+    = ``tol``, every layer. On the card forward_full and prefill must
+    launch ``route`` once a layer each and nothing else."""
     cfg = dataclasses.replace(config(arch), dtype="float32")
-    kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen,
@@ -1345,7 +1401,7 @@ def consistency(device, *, arch, s, cut, tol, seed,
     logits, cache = prefill(cfg, params, {"tokens": tokens[:, :cut]}, s)
     _sync(device)
     full_launches = dict(_build.launches)
-    want = {kernel: 2 * cfg.n_layers} \
+    want = {route: 2 * cfg.n_layers} \
         if torch.device(device).type == "cuda" else {}
     check(full_launches == want,
           f"consistency {arch}: forward_full + prefill launched "
@@ -1369,7 +1425,8 @@ def consistency(device, *, arch, s, cut, tol, seed,
     del params, cache, hidden, full
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(arch=arch, n_layers=cfg.n_layers, max_abs_err=max(errs))
+    return dict(arch=arch, n_layers=cfg.n_layers, max_abs_err=max(errs),
+                launches=full_launches)
 
 
 # --------------------------------------------- 11. model kernel timing
@@ -1390,72 +1447,209 @@ def _graphed(fn, device):
     return graph.replay
 
 
+def ptxas_report(libraries=("flash_attention", "wkv"),
+                 kernels=("flash_mma_kernel", "wkv_split_kernel")) -> dict:
+    """Registers, stack, spills and static shared memory of every compiled
+    instance of ``kernels``, read from ``_build``'s ``-Xptxas -v`` logs of
+    ``libraries`` (the tensor-core flash kernel and the split WKV kernel
+    take their shared memory dynamically, at launch: the sizes of
+    ``MmaTile`` and ``SplitSmem`` in their sources)."""
+    out: dict = {}
+    for lib in libraries:
+        fn = None
+        for line in (_build.library_path(lib).with_suffix(".log")
+                     .read_text().splitlines()):
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                hit = [k for k in kernels if k in name]
+                fn = name[name.index(hit[0]):].split("EEv")[0] if hit \
+                    else None
+                if fn:
+                    out[fn] = {}
+                continue
+            if fn is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out[fn].update(stack_bytes=int(m[1]),
+                               spill_store_bytes=int(m[2]),
+                               spill_load_bytes=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[fn].update(registers=int(m[1]), static_smem_bytes=int(
+                    smem[1]) if smem else 0)
+    return out
+
+
+def _wkv_views(gen, device, b, h, s, d, dtype="bfloat16"):
+    """r, k, v, logw as the model hands them over: head-transposed views of
+    (B, S, H, d) projections; r/k/v in ``dtype``, logw float32."""
+    dt = getattr(torch, dtype)
+    r, k, v = ((torch.randn(b, s, h, d, generator=gen, device=device) * 0.4)
+               .to(dt).transpose(1, 2) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(
+        b, s, h, d, generator=gen, device=device) * 0.3 - 0.6),
+        -4.25, -1e-6).transpose(1, 2)
+    u = torch.randn(h, d, generator=gen, device=device) * 0.3
+    return r, k, v, logw, u
+
+
+def _wkv_work(r, k, v, logw, u, state, o, c):
+    """Bytes (each input read once, each output written once) and float32
+    operations the chunked scan needs: the strictly-lower intra-chunk
+    terms, the decay factors, the state products."""
+    b, h, s, dk = r.shape
+    dv = v.shape[-1]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (r, k, v, logw, u, state, o))
+    pairs = c * (c - 1) // 2                         # strictly lower
+    per_chunk = (2 * c * dk * dv                     # r_dec @ S
+                 + 2 * pairs * dk + 2 * pairs * dv   # att, att @ v
+                 + 4 * c * dk + 2 * c * dv           # bonus, bonus * v
+                 + 2 * c * dk * dv + dk * dv         # state update
+                 + 6 * c * dk)                       # decay factors
+    return nbytes, per_chunk * b * h * (s // c)
+
+
+def _bound(nbytes, flops, peak):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bytes=nbytes, flops=flops,
+                bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def measure_model_kernels(device) -> dict:
-    """Each model kernel at its serving shape: device time per launch, the
-    plain version's, the library call's (flash: SDPA, causal, GQA) and the
+    """Each model entry point at the shape its main path gives it: device
+    time per launch, the plain version's, the library call's where one
+    computes the same function (SDPA, causal, GQA; WKV has none) and the
     bound, the larger of bytes over 3.35 TB/s and operations over the peak
-    for their type (flash: bf16 tensor cores; wkv: float32 CUDA cores,
-    the type the kernel computes in)."""
+    for their type (bf16: the tensor cores; float32: the CUDA cores, since
+    no route uses TF32). The one-CTA-a-head ``wkv``, on no main-path run,
+    at rwkv6-7b's heads over an 8-token prompt (one chunk of 8)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(9)
     out = {}
-    b, hq, hkv, s, d = 8, 14, 2, 512, 64            # qwen2-0.5b prefill
-    q, k, v = _flash_inputs(gen, device, b, hq, hkv, s, s, d, "bfloat16")
-    got = flash_attention_cuda(q, k, v)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         enable_gqa=True)
-    _within(got, lib, 2e-2, 2e-2, "flash_attention vs SDPA")
+    sdpa = F.scaled_dot_product_attention
+    library = ("torch.nn.functional.scaled_dot_product_attention("
+               "is_causal=True, enable_gqa=True)")
+
+    # flash_attention_mma at qwen2-0.5b's prefill (bf16)
+    b, hq, hkv, s, d = 8, 14, 2, 512, 64
+    q, k, v = _flash_inputs(gen, device, b, hq, hkv, s, s, d, "bfloat16",
+                            1.5)
+    got, route = _route_of_call(lambda: flash_attention_cuda(q, k, v))
+    check(route == "flash_attention_mma", f"qwen2's prefill shape ran {route}")
+    lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    _within(got, lib, 2e-2, 2e-2, "flash_attention_mma vs SDPA")
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
     flops = 4 * b * hq * d * (s * (s + 1) // 2)      # QK^T and PV, causal
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    out["flash_attention"] = dict(
+    mma = lambda: flash_attention_cuda(q, k, v)      # noqa: E731
+    lib_call = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
+                            enable_gqa=True)
+    turns = [device_ms(f, 50, device) for f in (mma, lib_call, mma, lib_call)]
+    out["flash_attention_mma"] = dict(
         shape=f"q ({b}, {hq}, {s}, {d}) bf16, k/v ({b}, {hkv}, {s}, {d}), "
-              f"causal",
+              f"causal", route=route, ms=turns[0], ms_turns=turns[0::2],
+        plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
+        library_ms=turns[1], library_ms_turns=turns[1::2], library=library,
+        **_bound(nbytes, flops, BF16_FLOP_PER_S))
+    del q, k, v, got, lib
+
+    # flash_attention (CUDA cores) at qwen2's float32 consistency prefill
+    cs = CONSISTENCY_SIZE["cut"]
+    q, k, v = _flash_inputs(gen, device, 1, hq, hkv, cs, cs, d, "float32",
+                            1.5)
+    got, route = _route_of_call(lambda: flash_attention_cuda(q, k, v))
+    check(route == "flash_attention", f"float32 ran {route}")
+    _within(got, flash_attention_ref(q, k, v), 2e-5, 2e-5,
+            "flash_attention float32 vs plain")
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + got.numel())
+    flops = 4 * hq * d * (cs * (cs + 1) // 2)
+    out["flash_attention"] = dict(
+        shape=f"q (1, {hq}, {cs}, {d}) float32, k/v (1, {hkv}, {cs}, {d}), "
+              f"causal", route=route,
         ms=device_ms(lambda: flash_attention_cuda(q, k, v), 50, device),
         plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 50, device),
-        library="torch.nn.functional.scaled_dot_product_attention("
-                "is_causal=True, enable_gqa=True)",
-        bytes=nbytes, flops=flops, bound_ms=max(by_bytes, by_ops) * 1e3,
-        bound_by="bytes" if by_bytes >= by_ops else "operations")
-    del q, k, v, got, lib
-    b, h, s, dk = 4, 64, 512, 64                    # rwkv6-7b prefill
-    c = 16
-    r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dk, "bfloat16",
-                                   "float32", False)
-    o, st = wkv_cuda(r, k, v, logw, u)
+        library_ms=device_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                          enable_gqa=True), 50, device),
+        library=library, **_bound(nbytes, flops, FP32_FLOP_PER_S))
+    del q, k, v, got
+
+    # wkv_split at rwkv6-7b's prefill, on the model's head-transposed views
+    b, h, s, dk, c = 4, 64, 512, 64, 16
+    r, k, v, logw, u = _wkv_views(gen, device, b, h, s, dk)
+    (o, st), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw, u))
+    check(route == "wkv_split", f"rwkv6-7b's prefill shape ran {route}")
     zero = torch.zeros((b, h, dk, dk), device=device)
-    nbytes = (2 * (r.numel() + k.numel() + v.numel() + o.numel())
-              + 4 * (logw.numel() + u.numel() + st.numel()))
-    pairs = c * (c - 1) // 2                         # strictly lower
-    per_chunk = (2 * c * dk * dk                     # r_dec @ S
-                 + 2 * pairs * dk + 2 * pairs * dk   # att, att @ v
-                 + 4 * c * dk + 2 * c * dk           # bonus, bonus * v
-                 + 2 * c * dk * dk + dk * dk         # state update
-                 + 6 * c * dk)                       # decay factors
-    flops = per_chunk * b * h * (s // c)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    out["wkv"] = dict(
-        shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16, logw float32, chunk {c}",
-        ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u), 20, device),
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, zero)
+    _within(o, want_o, 2e-2, 2e-2, "wkv_split o vs plain")
+    _within(st, want_st, 5e-4, 1e-3, "wkv_split state vs plain")
+    contig = [t.contiguous() for t in (r, k, v, logw)]
+    split = lambda: wkv_cuda(r, k, v, logw, u)       # noqa: E731
+    turns = [device_ms(f, 20, device) for f in
+             (split, lambda: wkv_cuda(*contig, u), split)]
+    # how the time grows with the batch (B x H x 2 CTAs): flat while the
+    # card has room, linear once the SMs are full
+    batch_ms = {}
+    for bb in (1, 2):
+        views = _wkv_views(gen, device, bb, h, s, dk)
+        batch_ms[bb] = device_ms(lambda: wkv_cuda(*views), 20, device)
+    batch_ms[b] = turns[0]
+    out["wkv_split"] = dict(
+        shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16 head-transposed views, "
+              f"logw float32, chunk {c}", route=route, ms=turns[0],
+        ms_turns=turns[0::2], contiguous_ms=turns[1], ms_by_batch=batch_ms,
         plain_ms=device_ms(_graphed(
             lambda: wkv_chunked_ref(r, k, v, logw, u, zero), device), 4,
             device),
-        library_ms=None, library="none",
-        bytes=nbytes, flops=flops, bound_ms=max(by_bytes, by_ops) * 1e3,
-        bound_by="bytes" if by_bytes >= by_ops else "operations",
-        ctas=b * h, sms=torch.cuda.get_device_properties(device)
-        .multi_processor_count)
+        library_ms=None, library="none", ctas=b * h * 2,
+        sms=torch.cuda.get_device_properties(device).multi_processor_count,
+        **_bound(*_wkv_work(r, k, v, logw, u, st, o, c), FP32_FLOP_PER_S))
+    del r, k, v, logw, o, st, contig, want_o, want_st
+
+    # wkv (one CTA a head, on no main-path run) at rwkv6-7b's heads over an
+    # 8-token prompt: one chunk of 8
+    s = c = 8
+    r, k, v, logw, u = (t.contiguous() for t in _wkv_views(
+        gen, device, b, h, s, dk))
+    (o, st), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw, u))
+    check(route == "wkv", f"a {s}-token scan ran {route}")
+    zero = torch.zeros((b, h, dk, dk), device=device)
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, zero)
+    _within(o, want_o, 2e-2, 2e-2, "wkv o vs plain")
+    _within(st, want_st, 5e-4, 1e-3, "wkv state vs plain")
+    out["wkv"] = dict(
+        shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16, logw float32, chunk {c}",
+        route=route, ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u), 50,
+                                  device),
+        plain_ms=device_ms(_graphed(
+            lambda: wkv_chunked_ref(r, k, v, logw, u, zero), device), 20,
+            device),
+        library_ms=None, library="none", ctas=b * h,
+        **_bound(*_wkv_work(r, k, v, logw, u, st, o, c), FP32_FLOP_PER_S))
+
     for name, m in out.items():
-        lib = (f"{m['library_ms']:.6f} ms" if m["library_ms"] is not None
-               else "none")
-        print(f"time {name} at {m['shape']}: kernel {m['ms']:.6f} ms, plain "
-              f"{m['plain_ms']:.6f} ms, library {lib}, bound "
+        lib = (f"{m['library_ms']:.6f} ms (kernel / library "
+               f"{m['ms'] / m['library_ms']:.3f})"
+               if m["library_ms"] is not None else "none")
+        print(f"time {name} (route {m['route']}) at {m['shape']}: kernel "
+              f"{m['ms']:.6f} ms, {m['ms'] / m['bound_ms']:.3f} x its bound "
               f"{m['bound_ms']:.6f} ms ({m['bound_by']}; {m['bytes']} B, "
-              f"{m['flops']} FLOP)"
-              + (f"; {m['ctas']} CTAs on {m['sms']} SMs"
-                 if "ctas" in m else ""))
+              f"{m['flops']} FLOP); plain {m['plain_ms']:.6f} ms; library "
+              f"{lib}"
+              + "".join(f"; {key} {m[key]}" for key in (
+                  "ms_turns", "library_ms_turns", "contiguous_ms",
+                  "ms_by_batch", "ctas", "sms") if key in m))
+    ptxas = ptxas_report()
+    for fn, rep in ptxas.items():
+        print(f"ptxas {fn}: {rep}")
+    out["flash_attention_mma"]["ptxas"] = {
+        fn: rep for fn, rep in ptxas.items() if "flash" in fn}
+    out["wkv_split"]["ptxas"] = {
+        fn: rep for fn, rep in ptxas.items() if "wkv" in fn}
     return out
 
 
@@ -1487,29 +1681,43 @@ def main() -> int:
     busy = chain_busy_share(device, k64)
     serving = {m["arch"]: serve_model(device, **m, **SERVE_STEPS)
                for m in SERVE_SIZE}
-    consistent = [consistency(device, arch=arch, **CONSISTENCY_SIZE)
-                  for arch in CONSISTENCY]
+    consistent = [consistency(device, arch=arch, route=route,
+                              **CONSISTENCY_SIZE)
+                  for arch, route in CONSISTENCY.items()]
     model_times = measure_model_kernels(device)
     torch.cuda.synchronize(device)
-    launches = dict(res["launches"], **chain["launches"])
+    # launches of every main-path run, each counted from zero just before
+    # it and read just after: lookups, chain hops, the serving prefills and
+    # the float32 consistency prefills
+    launches = collections.Counter(res["launches"])
+    launches.update(chain["launches"])
     for row in serving.values():
         launches.update(row["prefill_launches"])
+    for row in consistent:
+        launches.update(row["launches"])
+    qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
     top = max(cfg["batches"])
     kernels = []
-    for name in ("race_lookup_tiled", "race_lookup_scalar",
-                 "race_lookup_sharded", "chunk_gather", "flash_attention",
-                 "wkv"):
+    model_runs = {"flash_attention_mma": dict(serve=qwen2),
+                  "flash_attention": dict(consistency=consistent[0]),
+                  "wkv_split": dict(serve=rwkv6, consistency=consistent[1]),
+                  "wkv": dict(main_path=False)}
+    for name in ENTRY_POINTS:
         n = launches.get(name, 0)
-        check(n > 0, f"{name} was not launched on the main path")
+        check(n > 0 or name == "wkv",
+              f"{name} was not launched on the main path")
         bound_by = "bytes"
         if name in model_times:
             r = model_times[name]
-            arch = "rwkv6_7b" if name == "wkv" else "qwen2_0_5b"
             bound_by = r["bound_by"]
             extra = dict(library_ms=r["library_ms"], library=r["library"],
                          shape=r["shape"], bytes=r["bytes"],
-                         flops=r["flops"], serve=serving[arch],
-                         consistency=consistent)
+                         flops=r["flops"], **{
+                             key: r[key] for key in (
+                                 "ms_turns", "library_ms_turns",
+                                 "contiguous_ms", "ms_by_batch", "ptxas")
+                             if key in r},
+                         **model_runs[name])
         elif name == "chunk_gather":
             shape = GATHER_SHAPES[0][0]
             r = gather[shape]

@@ -9,6 +9,15 @@ contiguous. It allocates the (B, Hq, Sq, D) output with ``torch.empty``
 and launches on the current stream without synchronising. The kernel
 picks its own tiles. The library is built on first use (see
 ``kernels/_build.py``).
+
+Two routes, each its own C entry point, so that the launch counter shows
+which one ran; :func:`flash_route` picks one from the dtype and the head
+dim, and nothing falls back from one to the other:
+
+- ``flash_attention_mma``: bfloat16 with D <= 128, QK^T and P.V on the
+  tensor cores (``mma.sync``, float32 accumulators);
+- ``flash_attention``: float32 (full float32 FMAs, no TF32) and bfloat16
+  with D > 128, on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -21,15 +30,27 @@ import torch
 from .. import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-_SIGNATURES = {
-    # q, k, v, o, 9 strides, batch, hq, hkv, sq, skv, d, dtype, causal,
-    # has_window, window, has_cap, cap, has_kv_len, kv_len, q0, scale, stream
-    "flash_attention": (_P,) * 4 + (_L,) * 9 + (_I,) * 11 + (_F,)
-    + (_I,) * 3 + (_F, _P),
-}
+# q, k, v, o, 9 strides, batch, hq, hkv, sq, skv, d, dtype, causal,
+# has_window, window, has_cap, cap, has_kv_len, kv_len, q0, scale, stream
+_ARGS = (_P,) * 4 + (_L,) * 9 + (_I,) * 11 + (_F,) + (_I,) * 3 + (_F, _P)
+ROUTES = ("flash_attention_mma", "flash_attention")
+_SIGNATURES = {route: _ARGS for route in ROUTES}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+MMA_MAX_HEAD_DIM = 128
+#: BQ = BK of the tensor-core route: a row whose visited keys are all
+#: masked averages the keys of the tiles it visits
+MMA_TILE = 64
 _INT_MAX = 2 ** 31 - 1
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The C entry point for inputs of ``dtype`` and head dim ``d``: the
+    tensor-core route for bfloat16 up to D = 128, else the CUDA-core one
+    (float32 is multiplied in full float32, never TF32)."""
+    if dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
+        return "flash_attention_mma"
+    return "flash_attention"
 
 
 def _opt(x):
@@ -40,7 +61,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, cap=None,
                          kv_len=None, q0: int = 0) -> torch.Tensor:
     """Blockwise GQA attention on the card: q (B, Hq, Sq, D), k/v
     (B, Hkv, Skv, D), one dtype (float32 or bfloat16) on one CUDA device;
-    query i sits at position q0 + i. Returns (B, Hq, Sq, D) in q's dtype."""
+    query i sits at position q0 + i. Returns (B, Hq, Sq, D) in q's dtype,
+    through the route :func:`flash_route` picks."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (the plain "
@@ -71,12 +93,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, cap=None,
         return out
     if skv == 0:
         raise ValueError("flash_attention: no keys to attend to")
+    route = flash_route(q.dtype, d)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     lib = _build.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _build.launch(
-            lib, "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lib, route, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], b, hq, hkv, sq, skv, d, DTYPES[q.dtype],
             int(bool(causal)), *_opt(window), *_opt(cap), *_opt(kv_len),

@@ -5,7 +5,9 @@
 runs the plain PyTorch version. ``device=`` takes the place of JAX's
 ``interpret=``: inputs that are numpy arrays go to that device (default:
 the CUDA card). For tensors on the CPU every impl runs the plain version;
-on a CUDA tensor ``"kernel"`` launches the kernel or raises.
+on a CUDA tensor ``"kernel"`` launches the kernel or raises. Tensors keep
+their strides: the kernel's wrapper reads them as they are or copies them
+for the route that needs contiguous inputs.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ def wkv_with_state(r, k, v, logw, u, state=None, *, chunk: int = 16,
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     arrays = (r, k, v, logw, u) + (() if state is None else (state,))
-    arrays = on_device(device, arrays, (None,) * len(arrays))
+    arrays = on_device(device, arrays, (None,) * len(arrays),
+                       contiguous=False)
     r, k, v, logw, u = arrays[:5]
     state = arrays[5] if len(arrays) > 5 else None
     if impl == "ref" or r.device.type == "cpu":

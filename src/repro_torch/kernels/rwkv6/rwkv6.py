@@ -1,10 +1,20 @@
 """Python wrapper of the CUDA WKV kernel in ``csrc/wkv.cu`` (the Hopper
 counterpart of ``repro/kernels/rwkv6/rwkv6.py``).
 
-The wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates ``o`` and the final state with ``torch.empty``, and
-launches on the current stream without synchronising. The library is
-built on first use (see ``kernels/_build.py``).
+The wrapper takes CUDA tensors only, checks device, dtype and shape,
+allocates ``o`` and the final state with ``torch.empty``, and launches on
+the current stream without synchronising. The library is built on first
+use (see ``kernels/_build.py``).
+
+Two routes, each its own C entry point, so that the launch counter shows
+which one ran; :func:`wkv_route` picks one from the shape, and nothing
+falls back from one to the other:
+
+- ``wkv_split``: dk = dv = 64 with chunk 16 (rwkv6-7b's heads), the state's
+  columns split across two CTAs a head; it reads r, k, v and logw
+  through their strides (the last dimension contiguous), so the model's
+  head-transposed views go in without copies;
+- ``wkv``: every other shape, one CTA a head, on contiguous copies.
 """
 
 from __future__ import annotations
@@ -20,10 +30,21 @@ _SIGNATURES = {
     # r, k, v, logw, u, state_in, o, state_out, B*H, H, S, dk, dv, C,
     # dtype, wdtype, stream
     "wkv": (_P,) * 8 + (_L,) + (_I,) * 7 + (_P,),
+    # r, k, v, logw, u, state_in, o, state_out, the element strides of b,
+    # h and s of r, k, v and logw, B, H, S, dk, dv, C, dtype, wdtype, stream
+    "wkv_split": (_P,) * 8 + (_L,) * 12 + (_I,) * 8 + (_P,),
 }
+ROUTES = tuple(_SIGNATURES)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 16      # e^{+-4.25 * 16} is the float32 range the scan needs
 MAX_HEAD_DIM = 64
+SPLIT_SHAPE = (64, 64, 16)  # (dk, dv, chunk) of the split route
+
+
+def wkv_route(dk: int, dv: int, chunk: int) -> str:
+    """The C entry point for heads of ``dk`` x ``dv`` scanned in chunks of
+    ``chunk`` tokens (``min(chunk, S)``, as the scan uses it)."""
+    return "wkv_split" if (dk, dv, chunk) == SPLIT_SHAPE else "wkv"
 
 
 def wkv_cuda(r, k, v, logw, u, state=None, *, chunk: int = 16):
@@ -31,7 +52,8 @@ def wkv_cuda(r, k, v, logw, u, state=None, *, chunk: int = 16):
     (B, H, S, dk); v (B, H, S, dv); u (H, dk); state (B, H, dk, dv) float32.
     r, k and v share a dtype (float32 or bfloat16); logw is float32 or
     bfloat16. Returns (o (B, H, S, dv) in r's dtype, final state float32).
-    S must be a multiple of min(chunk, S), with that chunk <= 16."""
+    S must be a multiple of min(chunk, S), with that chunk <= 16. The
+    inputs may be strided views. Runs the route :func:`wkv_route` picks."""
     named = {"r": r, "k": k, "v": v, "logw": logw, "u": u}
     if state is not None:
         named["state"] = state
@@ -75,15 +97,23 @@ def wkv_cuda(r, k, v, logw, u, state=None, *, chunk: int = 16):
                             device=r.device)
     if b * h == 0:
         return o, state_out
-    r, k, v, logw = (t.contiguous() for t in (r, k, v, logw))
+    route = wkv_route(dk, dv, c)
     u = u.float().contiguous()
     state_in = None if state is None else state.contiguous()
+    if route == "wkv_split":
+        r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in (r, k, v, logw))
+        shape = (*(st for t in (r, k, v, logw) for st in t.stride()[:3]),
+                 b, h, s, dk, dv, c)
+    else:
+        r, k, v, logw = (t.contiguous() for t in (r, k, v, logw))
+        shape = (b * h, h, s, dk, dv, c)
     lib = _build.library("wkv", _SIGNATURES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        _build.launch(lib, "wkv", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.launch(lib, route, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                       logw.data_ptr(), u.data_ptr(),
                       None if state_in is None else state_in.data_ptr(),
-                      o.data_ptr(), state_out.data_ptr(), b * h, h, s, dk,
-                      dv, c, DTYPES[r.dtype], DTYPES[logw.dtype], stream)
+                      o.data_ptr(), state_out.data_ptr(), *shape,
+                      DTYPES[r.dtype], DTYPES[logw.dtype], stream)
     return o, state_out

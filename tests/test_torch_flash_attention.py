@@ -19,6 +19,8 @@ from repro.kernels.flash_attention.flash_attention import \
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.models.attention import dense_attention as jax_dense
+from repro_torch.kernels.flash_attention.flash_attention import (
+    ROUTES, flash_route)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention import attention, dense_attention
@@ -143,3 +145,20 @@ def test_numpy_inputs_and_impl_names():
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="unknown impl"):
         flash_attention(q, q, q, impl="pallas", device="cpu")
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "flash_attention_mma"),    # qwen2, olmo, llava
+    (torch.bfloat16, 96, "flash_attention_mma"),    # phi3
+    (torch.bfloat16, 128, "flash_attention_mma"),
+    (torch.bfloat16, 1, "flash_attention_mma"),
+    (torch.bfloat16, 129, "flash_attention"),
+    (torch.bfloat16, 256, "flash_attention"),       # gemma2
+    (torch.float32, 64, "flash_attention"),         # no TF32
+    (torch.float32, 256, "flash_attention"),
+])
+def test_route_dispatch(dtype, d, route):
+    """bfloat16 up to D = 128 takes the tensor-core route; float32 (full
+    float32 products) and bfloat16 above 128 the CUDA-core one."""
+    assert flash_route(dtype, d) == route
+    assert route in ROUTES

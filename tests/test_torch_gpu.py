@@ -18,8 +18,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_cluster
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention_cuda
+from repro_torch.kernels.flash_attention.flash_attention import (
+    MMA_TILE, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref, wkv_sequential
@@ -309,6 +309,94 @@ def test_flash_kernel_takes_strided_views_and_counts(fp32_cuda):
                              * 3)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,cap,kv_len,q0", [
+    (8, 14, 2, 512, 512, 64, True, None, None, None, 0),      # qwen2
+    (1, 8, 8, 300, 300, 96, True, None, None, None, 0),       # phi3's D
+    (1, 4, 2, 544, 544, 128, True, None, None, None, 0),
+    (2, 14, 2, 200, 200, 64, True, None, None, None, 0),      # ragged
+    (1, 14, 2, 544, 544, 64, True, None, None, None, 0),
+    (1, 4, 2, 100, 300, 64, False, None, None, None, 0),
+    (2, 14, 2, 64, 300, 64, True, None, None, 250, 236),      # q0, kv_len
+    (1, 4, 2, 130, 130, 64, True, 48, 50.0, None, 0),         # window, cap
+    (1, 32, 32, 1024, 1024, 96, True, 512, 50.0, None, 0),
+    (1, 4, 2, 33, 77, 40, False, None, 50.0, None, 0),        # D % 8 != 0
+])
+def test_flash_mma_route_equals_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                      window, cap, kv_len, q0):
+    """The tensor-core route at bf16, inputs drawn at 1.5 so that 2e-2 lies
+    well below the outputs' mean magnitude."""
+    g = torch.Generator("cpu").manual_seed(sq + d)
+    q, k, v = ((torch.randn(sh, generator=g) * 1.5).to(cuda, torch.bfloat16)
+               for sh in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    _build.launches.clear()
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               cap=cap, kv_len=kv_len, q0=q0)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_mma": 1}
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               cap=cap, kv_len=kv_len, q0=q0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float(want.float().abs().mean()) > 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_mma_route_takes_strided_views(cuda):
+    """The model's head-transposed bf16 projections, without a copy; a view
+    whose rows are not 16-byte aligned takes the plain-load path."""
+    b, s, hq, hkv, d = 2, 96, 14, 2, 64
+    g = torch.Generator("cpu").manual_seed(3)
+    q = torch.randn(b, s, hq, d, generator=g).to(cuda, torch.bfloat16) \
+        .transpose(1, 2)
+    kv = torch.randn(b, s, hkv, d, generator=g).to(cuda, torch.bfloat16) \
+        .transpose(1, 2)
+    odd = torch.randn(b, hkv, s, d + 1, generator=g).to(
+        cuda, torch.bfloat16)[..., 1:]                  # 2-byte aligned rows
+    _build.launches.clear()
+    for kk, vv in ((kv, kv), (odd, kv), (kv, odd)):
+        got = flash_ops.flash_attention(q, kk, vv)
+        torch.testing.assert_close(got.float(), flash_attention_ref(
+            q, kk, vv).float(), atol=2e-2, rtol=2e-2)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_mma": 3}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mma_row_with_all_visited_keys_masked(cuda, causal):
+    """kv_len = 0 masks every key: each row averages the keys of the tiles
+    it visits (all of them without causality; tiles up to its q tile's
+    diagonal with it), p = 1 for each, as the Pallas kernel does."""
+    b, hq, hkv, s, d = 1, 2, 1, 200, 64
+    g = torch.Generator("cpu").manual_seed(4)
+    q, k, v = (torch.randn(sh, generator=g).to(cuda, torch.bfloat16)
+               for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    got = flash_attention_cuda(q, k, v, causal=causal, kv_len=0)
+    torch.cuda.synchronize()
+    if not causal:
+        torch.testing.assert_close(got.float(), flash_attention_ref(
+            q, k, v, causal=False, kv_len=0).float(), atol=2e-2, rtol=2e-2)
+    vf = v[0, 0].float()
+    for row in (0, 63, 64, 150, s - 1):
+        last = s if not causal else min(s, (row // MMA_TILE + 1) * MMA_TILE)
+        want = vf[:last].mean(0).expand(hq, d)
+        torch.testing.assert_close(got[0, :, row].float(), want, atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_flash_routes_by_dtype_and_head_dim(fp32_cuda):
+    """bf16 up to D = 128 on the tensor cores, float32 and bf16 D = 256 on
+    the CUDA cores."""
+    qs = {(dtype, d): torch.randn(1, 2, 64, d, device=fp32_cuda).to(dtype)
+          for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                           (torch.float32, 64), (torch.bfloat16, 256))}
+    _build.launches.clear()
+    for q in qs.values():
+        flash_attention_cuda(q, q, q)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_mma": 2,
+                                     "flash_attention": 2}
+
+
 def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,
                 wdtype=torch.float32, seed=7, strong=False):
     g = torch.Generator("cpu").manual_seed(seed)
@@ -369,6 +457,58 @@ def test_wkv_counts_and_refuses_ragged_lengths(cuda):
         wkv_cuda(*(t[:, :, :40] for t in (r, k, v, logw)), u)
     with pytest.raises(ValueError, match="chunk 32"):
         wkv_cuda(r, k, v, logw, u, chunk=32)
+
+
+@pytest.mark.parametrize("b,dtype,wdtype,state", [
+    (1, torch.bfloat16, torch.float32, True),      # few CTAs, given state
+    (2, torch.bfloat16, torch.float32, False),     # the model's dtypes
+    (2, torch.float32, torch.float32, True),
+    (1, torch.bfloat16, torch.bfloat16, True),
+])
+def test_wkv_split_route_on_head_transposed_views(fp32_cuda, b, dtype,
+                                                  wdtype, state):
+    """rwkv6-7b's heads (64 x 64, chunk 16) through the split route, fed
+    the model's head-transposed views of (B, S, H, 64) projections, from a
+    given or a zero state."""
+    h, s, d = 8, 128, 64
+    g = torch.Generator("cpu").manual_seed(b * 10 + int(state))
+    r, k, v = ((torch.randn(b, s, h, d, generator=g) * 0.4).to(
+        fp32_cuda, dtype).transpose(1, 2) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(b, s, h, d, generator=g) * 0.3
+                                  - 0.6), -4.25, -1e-6).to(
+        fp32_cuda, wdtype).transpose(1, 2)
+    u = (torch.randn(h, d, generator=g) * 0.3).to(fp32_cuda)
+    s0 = torch.randn(b, h, d, d, generator=g).to(fp32_cuda) if state \
+        else None
+    assert not r.is_contiguous()
+    _build.launches.clear()
+    o, st = wkv_ops.wkv_with_state(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv_split": 1}
+    zero = torch.zeros(b, h, d, d, device=fp32_cuda)
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u,
+                                      zero if s0 is None else s0)
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    assert o.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(st, want_st, atol=5e-4, rtol=1e-3)
+    o2, st2 = wkv_cuda(*(t.contiguous() for t in (r, k, v, logw)), u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o2.float(), o.float(), atol=0, rtol=0)
+    torch.testing.assert_close(st2, st, atol=0, rtol=0)
+
+
+def test_wkv_routes_by_shape(cuda):
+    """Only 64 x 64 heads in chunks of 16 take the split route; the
+    one-CTA-a-head kernel takes every other shape."""
+    r, k, v, logw, u = _wkv_inputs(cuda, 1, 2, 64, 64, 64)
+    _build.launches.clear()
+    wkv_cuda(r, k, v, logw, u)
+    wkv_cuda(r, k, v, logw, u, chunk=8)
+    wkv_cuda(*(t[..., :32] for t in (r, k, v, logw)), u[:, :32])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv_split": 1, "wkv": 2}
 
 
 # --------------------------------------------------- models through kernels

@@ -19,7 +19,9 @@ from repro.kernels.rwkv6.ops import wkv as jax_wkv
 from repro.kernels.rwkv6.ref import wkv_sequential as jax_sequential
 from repro.models.rwkv6 import wkv_chunked as jax_chunked
 from repro_torch.kernels.rwkv6.ops import wkv, wkv_with_state
-from repro_torch.kernels.rwkv6.ref import wkv_ref, wkv_sequential
+from repro_torch.kernels.rwkv6.ref import (wkv_chunked_ref, wkv_ref,
+                                          wkv_sequential)
+from repro_torch.kernels.rwkv6.rwkv6 import ROUTES, wkv_route
 from repro_torch.models.rwkv6 import wkv_chunked
 
 TOL = dict(atol=5e-4, rtol=1e-3)
@@ -120,3 +122,62 @@ def test_short_sequence_and_errors():
         wkv(*_t(bad))
     with pytest.raises(ValueError, match="unknown impl"):
         wkv(*_t(arrays), impl="pallas")
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,parts,chunk", [
+    (2, 2, 64, 64, 64, 2, 16), (1, 3, 48, 64, 64, 4, 16),
+    (2, 2, 32, 16, 32, 2, 8),
+])
+def test_dv_split_premise_matches_jax(b, h, s, dk, dv, parts, chunk):
+    """The split route's premise: the state's dv columns are independent.
+    The port's plain chunked scan on dv-column slices of v and the state,
+    concatenated, equals JAX's ``wkv_chunked`` on the whole."""
+    arrays = _inputs(b, h, s, dk, dv, seed=13)
+    state0 = np.random.RandomState(14).randn(b, h, dk, dv).astype(np.float32)
+    jo, jstate = jax_chunked(*arrays, jnp.asarray(state0), chunk=chunk)
+    r, k, v, logw, u = _t(arrays)
+    s0 = torch.from_numpy(state0)
+    cols = np.array_split(np.arange(dv), parts)
+    outs = [wkv_chunked_ref(r, k, v[..., c], logw, u, s0[..., c],
+                            chunk=chunk) for c in cols]
+    _close(torch.cat([o for o, _ in outs], dim=-1), jo)
+    _close(torch.cat([st for _, st in outs], dim=-1), jstate)
+
+
+@pytest.mark.parametrize("state", [False, True])
+def test_wkv_with_state_takes_strided_views(state):
+    """The model hands the op head-transposed views of (B, S, H, d)
+    projections; the op takes them as they are and returns what it returns
+    for contiguous copies."""
+    b, s, h, d = 2, 32, 3, 16
+    rng = np.random.RandomState(15)
+    r, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)
+                                * 0.4).transpose(1, 2) for _ in range(3))
+    logw = torch.from_numpy(np.clip(-np.exp(rng.randn(b, s, h, d) * 0.3
+                                            - 0.6), -4.25, -1e-6)
+                            .astype(np.float32)).transpose(1, 2)
+    u = torch.from_numpy((rng.randn(h, d) * 0.3).astype(np.float32))
+    s0 = torch.from_numpy(rng.randn(b, h, d, d).astype(np.float32)) \
+        if state else None
+    assert not r.is_contiguous()
+    o, st = wkv_with_state(r, k, v, logw, u, s0)
+    o2, st2 = wkv_with_state(*(t.contiguous() for t in (r, k, v, logw)), u,
+                             s0)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    jo, jstate = jax_chunked(*(t.contiguous().numpy() for t in (r, k, v,
+                                                               logw)),
+                             u.numpy(), np.zeros((b, h, d, d), np.float32)
+                             if s0 is None else s0.numpy())
+    _close(o, jo)
+    _close(st, jstate)
+
+
+@pytest.mark.parametrize("dk,dv,chunk,route", [
+    (64, 64, 16, "wkv_split"), (64, 64, 8, "wkv"), (32, 32, 16, "wkv"),
+    (64, 32, 16, "wkv"), (16, 64, 16, "wkv"), (64, 64, 4, "wkv"),
+])
+def test_route_dispatch(dk, dv, chunk, route):
+    """rwkv6-7b's heads (64 x 64, chunk 16) take the split route, every
+    other shape the one-CTA-a-head kernel."""
+    assert wkv_route(dk, dv, chunk) == route
+    assert route in ROUTES
