@@ -13,23 +13,30 @@ plain version):
 
 1. Device report: the card's name and power limit from ``nvidia-smi``;
    both TF32 switches off (float32 products in full float32).
-2. Build: compile every CUDA source of the port (``race_lookup.cu``,
-   ``serverless_stage.cu``, ``flash_attention.cu`` and ``wkv.cu``; one
-   ``nvcc`` per source, started together) and print each ``-Xptxas -v``
-   report.
+2. Build: print ``nvcc --version`` (the by-value routes need CUDA 12.1's
+   32,764 bytes of kernel parameters), compile every CUDA source of the
+   port (``race_lookup.cu``, ``serverless_stage.cu``, ``flash_attention.cu``
+   and ``wkv.cu``; one ``nvcc`` per source, started together) and print
+   each ``-Xptxas -v`` report.
 3. Kernel parity: each kernel against its plain PyTorch version on the
    card, exact. The lookup kernels: values and ``found`` at the test shapes
    (NSLOT 4/8/16/32, ragged tails, NQ = 0), out-of-range bucket ids, empty
-   and ragged shards, float32 and bfloat16 value tables. ``chunk_gather``:
-   NOUT 0, 1 and ragged; ``valid`` 0, 1, 64, 127, 128, above 128 and
-   negative; repeated rows, NSRC = 1, ids outside [0, NSRC) (a negative id
-   wraps once, then ids clamp, as in JAX), other chunk sizes and an
-   unaligned source (the scalar path); and ``stage_pack`` /
-   ``stage_unpack`` round trips over payloads of 0, 1, 127, 128, 129 and
-   513 elements, equal to the same calls on the CPU. ``flash_attention``:
-   the six cases of ``test_flash_attention_sweep``, the block-shape case,
-   qwen2's prefill shape (8, 14, 512, 64) in bf16 and float32, ragged
-   S = 200 and 544, D = 96 and 256 with window 512 and cap 50 in bf16, and
+   and ragged shards, float32 and bfloat16 value tables; the sharded
+   kernel on both routes (routing on the host: ``race_lookup_sharded_byval``
+   up to 2,032 queries; on the card: ``race_lookup_sharded``) at NSLOT
+   4/8/16/32 and NQ 1, odd, 2,031, 2,032 and 2,033. ``chunk_gather`` on both
+   routes (routing on the host: ``chunk_gather_byval`` up to 2,048 chunks;
+   on the card: ``chunk_gather``): NOUT 0, 1, ragged, 2,047, 2,048 and
+   2,049; ``valid`` 0, 1, 64, 127, 128, above 128 and negative; repeated
+   rows, NSRC = 1, ids outside [0, NSRC) (a negative id wraps once, then
+   ids clamp, as in JAX), other chunk sizes and an unaligned source (the
+   scalar path); and ``stage_pack`` / ``stage_unpack`` round trips over
+   payloads of 0, 1, 127, 128, 129 and 513 elements, equal to the same
+   calls on the CPU. Each case checks the route that launched.
+   ``flash_attention``: the six cases of ``test_flash_attention_sweep``,
+   the block-shape case, qwen2's prefill shape (8, 14, 512, 64) in bf16
+   and float32, ragged S = 200 and 544, D = 96 and 256 with window 512 and
+   cap 50 in bf16, and
    ``kv_len`` cases, at 2e-5 (float32) / 2e-2 (bf16); the cases at the
    models' shapes draw inputs large enough that each tolerance lies below
    the output's mean magnitude, which the phase checks; and the result is
@@ -54,12 +61,22 @@ plain version):
    ``_h1`` and ``shard_of_key`` share a multiplier, and with 4 shards and a
    bucket count divisible by 4 each shard's first choice reaches only a
    quarter of its buckets. Launch counters are cleared just before each
-   table's run and read just after.
+   table's run and read just after; gates: the table launches 25
+   ``race_lookup_tiled`` and 1 ``race_lookup_scalar``, the sharded one 16
+   ``race_lookup_sharded_byval`` (its 64 and 512 batches, routing on the
+   host), 9 ``race_lookup_sharded`` (the 4,096 batches) and 4
+   ``race_lookup_scalar``.
 5. Lookup kernel times: per kernel and batch size, the device time per
-   launch from CUDA events over many launches queued behind a spin kernel,
-   the plain version's time the same way, the host time of
-   ``lookup_batch`` (median and 90th percentile of 200 calls), and the
-   bound (bytes the batch needs over 3.35 TB/s).
+   launch from CUDA events over many launches queued behind a spin kernel
+   (each sharded route on the routing it takes on the main path), the plain
+   version's time the same way, the host time of ``lookup_batch`` (median
+   and 90th percentile of 200 calls) with a breakdown by step, the bound
+   (bytes the batch needs over 3.35 TB/s), and the sharded routes' time
+   over ``race_lookup_tiled``'s at the same batch (the in-run control).
+   Then, both tables alive, ``lookup_batch`` on each in turns (p50 and p90
+   of 200 calls each), so that the two see the same host. Gate: one
+   ``lookup_batch`` of 512 keys on the sharded table shows one device span
+   under ``torch.profiler`` (the kernel; no copy).
 6. Chain path at real size: ``ChainRunner(..., "krcore", device=cuda)`` over
    ``make_cluster(n_nodes=3, n_meta=1)``, stages extract -> transform ->
    load on n0 -> n1 -> n2 with ``default_registry``: the chain suite's
@@ -74,14 +91,19 @@ plain version):
    transport's for the 1 KiB cells. The simulated microseconds of a
    ``ChainReport`` are the cost model's (the paper's constants), not times
    on any chip. Launch counters are cleared just before the card's epochs
-   and read just after.
-7. Chain times: ``chunk_gather``'s device time per launch on a 16 x 1 KiB
-   slab, a 16 x 64 KiB slab and, beyond the chain's sizes, 64 x 1 MiB,
-   beside the plain version's, ``index_select``'s (the same gather without
-   the mask) and the bound; the host time of ``encode_slab`` and
-   ``decode_slab`` (median and 90th percentile of 200 calls) with a
-   breakdown by step; the wall time of a chain epoch; and the card's busy
-   share of one epoch from ``torch.profiler``.
+   and read just after; gate: 70 ``chunk_gather_byval`` launches and none
+   of the device route (every chain gather fits 2,048 chunks).
+7. Chain times: ``chunk_gather_byval``'s device time per launch on a
+   16 x 1 KiB slab and a 16 x 64 KiB slab (routing on the host), and the
+   device route's there and, beyond the chain's sizes, at 64 x 1 MiB
+   (routing on the card), beside the plain version's, ``index_select``'s
+   (the same gather without the mask; the by-value route's ratio to it)
+   and the bound; the host time of ``encode_slab`` and ``decode_slab``
+   (median and 90th percentile of 200 calls) with a breakdown by step; the
+   wall time of a chain epoch; and the card's busy share of one epoch from
+   ``torch.profiler``. Gate: that K = 64 x 1 KiB epoch shows 48 device
+   spans (16 gathers, each one copy of the source, the kernel, one copy
+   back).
 8. Serving path at full width, bf16 (the configs' dtype): qwen2-0.5b, then
    rwkv6-7b, parameters drawn on the card from the seed.
    ``make_prefill_step`` on 8 x 512 (qwen2, max_len 1024) / 4 x 512
@@ -106,13 +128,14 @@ plain version):
     main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
     timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
     tokens it would scan, and held there on ``o`` and the final state.
-    Then each new kernel's registers, stack, spills and static shared
-    memory from the ptxas report of the build.
+    Then the registers, stack, spills and static shared memory of the
+    redesigned kernels from the ptxas report of the build; gate: the
+    by-value and sharded kernels have a 0-byte stack frame and no spills.
 11. A ``{"kernels": [...]}`` line with every C entry point (its launches
     are those of every main-path run above: lookups, chain hops, prefills
-    and the float32 consistency prefills; each entry point but ``wkv``
-    must have launched there), then as the last line
-    ``{"ok": true, "device": {...}}``.
+    and the float32 consistency prefills; each entry point but ``wkv`` and
+    the device route of ``chunk_gather`` must have launched there), then
+    as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -154,7 +177,8 @@ from repro_torch.kernels.serverless_stage import (  # noqa: E402
 from repro_torch.kernels.serverless_stage.ref import (  # noqa: E402
     chunk_gather_ref)
 from repro_torch.kernels.serverless_stage.stage import (  # noqa: E402
-    CHUNK, chunk_gather_cuda)
+    BYVAL_CAP as GATHER_CAP, CHUNK, ROUTES as GATHER_ROUTES,
+    chunk_gather_cuda, gather_route)
 from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
     wkv_chunked_ref, wkv_sequential)
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda, wkv_route  # noqa: E402
@@ -179,8 +203,12 @@ SOURCES = {
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "race_lookup_scalar":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
+    "race_lookup_sharded_byval":
+        "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "race_lookup_sharded":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
+    "chunk_gather_byval":
+        "src/repro_torch/kernels/serverless_stage/csrc/serverless_stage.cu",
     "chunk_gather":
         "src/repro_torch/kernels/serverless_stage/csrc/serverless_stage.cu",
     "flash_attention_mma":
@@ -193,7 +221,10 @@ SOURCES = {
 REPLACES = {
     "race_lookup_tiled": "src/repro/kernels/race_lookup/race_lookup.py:167",
     "race_lookup_scalar": "src/repro/kernels/race_lookup/race_lookup.py:76",
+    "race_lookup_sharded_byval":
+        "src/repro/kernels/race_lookup/race_lookup.py:226",
     "race_lookup_sharded": "src/repro/kernels/race_lookup/race_lookup.py:226",
+    "chunk_gather_byval": "src/repro/kernels/serverless_stage/stage.py:44",
     "chunk_gather": "src/repro/kernels/serverless_stage/stage.py:44",
     "flash_attention_mma":
         "src/repro/kernels/flash_attention/flash_attention.py:96",
@@ -204,6 +235,9 @@ REPLACES = {
 }
 #: every C entry point of the port, in the order of the ``kernels`` line
 ENTRY_POINTS = tuple(SOURCES)
+#: entry points that no main-path run launches: each is held against its
+#: plain version and timed at its own shape
+OFF_MAIN_PATH = ("chunk_gather", "wkv")
 #: the deployment the main path runs (see the module docstring)
 REAL_SIZE = dict(n_buckets=524_287, shard_buckets=131_071, n_shards=4,
                  nslot=8, vdim=256, n_keys=1_000_000,
@@ -249,6 +283,9 @@ def device_report() -> None:
 
 # ---------------------------------------------------------------- 2. build
 def build_kernels() -> None:
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    print(f"nvcc --version: {nvcc.stdout.strip().splitlines()[-2:]}")
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"build: {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
@@ -276,6 +313,24 @@ def _same(got, want, errs, name, what):
     check(torch.equal(gv, wv) and torch.equal(gf, wf),
           f"{name} {what}: differs from the plain version (max abs err "
           f"{err})")
+
+
+def _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs, what) -> None:
+    """The sharded kernel on the card's routing and on the host's, each
+    against the plain version, and the route each took."""
+    device = fp_t.device
+    q_t, b_t, s_t = (torch.from_numpy(a).to(device) for a in (fps, bidx, sidx))
+    want = race_lookup_sharded_ref(fp_t, vt_t, q_t, b_t, s_t)
+    for host, args in ((False, (q_t, b_t, s_t)), (True, (fps, bidx, sidx))):
+        route = kern.sharded_route(host, len(fps))
+        if not len(fps):                                   # no launch
+            got = kern.race_lookup_sharded(fp_t, vt_t, *args)
+        else:
+            got, ran = _route_of_call(
+                lambda: kern.race_lookup_sharded(fp_t, vt_t, *args))
+            check(ran == route, f"sharded {what}: ran {ran}, not {route}")
+        _same(got, want, errs, route,
+              f"{what} routing on the {'host' if host else 'card'}")
 
 
 def kernel_parity(device) -> dict:
@@ -329,13 +384,24 @@ def kernel_parity(device) -> dict:
                 fps[i], bidx[i] = f[0], b[0]
             if len(sidx):
                 bidx[::4] = rng.integers(-3, nb + 3, bidx[::4].shape)
-            q_t, b_t, s_t = (torch.from_numpy(a).to(device)
-                             for a in (fps, bidx, sidx))
-            want = race_lookup_sharded_ref(fp_t, vt_t, q_t, b_t, s_t)
-            _same(kern.race_lookup_sharded(fp_t, vt_t, q_t, b_t, s_t,
-                                           qblock=16),
-                  want, errs, "race_lookup_sharded",
-                  f"ns={ns} counts={counts} {dtype}")
+            _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs,
+                            f"ns={ns} counts={counts} {dtype}")
+            cases += 1
+    # both routes at every NSLOT and at the by-value cap's edges: random
+    # fingerprints from a small range, so slots repeat and many are empty
+    cap = kern.BYVAL_CAP
+    for nslot in (4, 8, 16, 32):
+        ns, nb = 3, 16
+        fp_t = torch.from_numpy(rng.integers(0, 40, (ns, nb, nslot))
+                                .astype(np.int32)).to(device)
+        vt_t = torch.from_numpy(rng.standard_normal((ns, nb, nslot, 256))
+                                .astype(np.float32)).to(device)
+        for nq in (1, 7, cap - 1, cap, cap + 1):
+            fps = rng.integers(0, 40, nq).astype(np.int32)
+            bidx = rng.integers(-3, nb + 3, (nq, 2)).astype(np.int32)
+            sidx = rng.integers(0, ns, nq).astype(np.int32)
+            _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs,
+                            f"nslot={nslot} nq={nq}")
             cases += 1
     torch.cuda.synchronize(device)
     print(f"parity: {cases} cases, every kernel equal to its plain version "
@@ -343,31 +409,41 @@ def kernel_parity(device) -> dict:
     return errs
 
 
-def stage_parity(device) -> float:
-    """``chunk_gather`` against its plain version on ``device``, and the
-    pack/unpack ops against the same calls on the CPU; exact. Returns the
-    largest absolute difference seen (0: exact)."""
+def stage_parity(device) -> dict:
+    """``chunk_gather``'s routes against its plain version on ``device``,
+    and the pack/unpack ops against the same calls on the CPU; exact.
+    Returns the largest absolute difference seen by route (0: exact)."""
     rng = np.random.default_rng(2)
-    err = 0
+    err = dict.fromkeys(GATHER_ROUTES, 0)
     cases = 0
 
     def one(src, rows, valid, chunk, what, want_rows=None):
-        nonlocal err, cases
+        """Both routes: the routing on the card, then on the host."""
+        nonlocal cases
         if isinstance(src, np.ndarray):
             src = torch.from_numpy(src).to(device)
-        rows, valid = (torch.from_numpy(np.asarray(a, np.int32)).to(device)
-                       for a in (rows, valid))
-        got = chunk_gather_cuda(src, rows, valid, chunk=chunk)
-        want = chunk_gather_ref(src, rows, valid, chunk=chunk)
-        check(got.dtype == torch.int32 and got.shape == want.shape,
-              f"chunk_gather {what}: {got.dtype} {tuple(got.shape)}")
-        if got.numel():
-            err = max(err, int((got.long() - want.long()).abs().max()))
-        check(torch.equal(got, want),
-              f"chunk_gather {what}: differs from the plain version")
-        if want_rows is not None:
-            check(torch.equal(got, src[want_rows]),
-                  f"chunk_gather {what}: rows resolved wrongly")
+        host = [np.asarray(a, np.int32) for a in (rows, valid)]
+        card = [torch.from_numpy(a).to(device) for a in host]
+        want = chunk_gather_ref(src, *card, chunk=chunk)
+        for routing, route in ((card, "chunk_gather"),
+                               (host, gather_route(True, len(host[0])))):
+            call = lambda: chunk_gather_cuda(src, *routing, chunk=chunk)
+            if len(host[0]):
+                got, ran = _route_of_call(call)
+                check(ran == route, f"chunk_gather {what}: ran {ran}, not "
+                      f"{route}")
+            else:                                          # no launch
+                got = call()
+            check(got.dtype == torch.int32 and got.shape == want.shape,
+                  f"{route} {what}: {got.dtype} {tuple(got.shape)}")
+            if got.numel():
+                err[route] = max(err[route], int(
+                    (got.long() - want.long()).abs().max()))
+            check(torch.equal(got, want),
+                  f"{route} {what}: differs from the plain version")
+            if want_rows is not None:
+                check(torch.equal(got, src[want_rows]),
+                      f"{route} {what}: rows resolved wrongly")
         cases += 1
 
     def draw(nsrc, nout, chunk):
@@ -379,10 +455,12 @@ def stage_parity(device) -> float:
         valid = rng.choice(lives, nout).astype(np.int32)
         return src, rows, valid
 
+    cap = GATHER_CAP
     for nsrc, nout, chunk in ((1, 0, 128), (1, 1, 128), (1, 9, 128),
                               (7, 1, 128), (33, 77, 128), (300, 1001, 128),
-                              (2048, 2048, 128), (5, 13, 6), (4, 9, 36),
-                              (3, 5, 1), (9, 40, 4)):
+                              (300, cap - 1, 128), (2048, cap, 128),
+                              (300, cap + 1, 128), (5, 13, 6), (4, 9, 36),
+                              (3, 5, 1), (9, 40, 4), (9, cap, 4)):
         src, rows, valid = draw(nsrc, nout, chunk)
         one(src, rows, valid, chunk, f"nsrc={nsrc} nout={nout} chunk={chunk}")
     src, _, _ = draw(4, 0, 128)
@@ -417,9 +495,9 @@ def stage_parity(device) -> float:
         cases += 1
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"parity: chunk_gather {cases} cases equal to its plain version "
-          f"and the CPU (max abs err {err})")
-    return float(err)
+    print(f"parity: chunk_gather {cases} cases, both routes equal to the "
+          f"plain version and the CPU (max abs err {err})")
+    return {route: float(e) for route, e in err.items()}
 
 
 # ------------------------------------------------------------ 4. lookup path
@@ -493,13 +571,18 @@ def load_table(table, wl) -> float:
 
 
 def main_path(device, *, n_buckets, shard_buckets, n_shards, nslot, vdim,
-              n_keys, batches, reps, seed, measure=None) -> dict:
+              n_keys, batches, reps, seed, measure=None,
+              compare=None) -> dict:
     """Both tables through the main path. ``measure(table, wl, sharded)``
-    runs while each table is alive (kernel times on the card); returns the
-    launches per kernel summed over both runs and what ``measure`` gave."""
+    runs while each table is alive (kernel times on the card), then
+    ``compare(tables, wl)`` with both alive; returns the launches per kernel
+    summed over both runs, each table's own, what ``measure`` gave and
+    what ``compare`` gave."""
     wl = make_workload(seed, n_keys, vdim, batches, reps)
     launches: dict = {}
+    by_table = {}
     measured = {}
+    tables = []
     for sharded in (False, True):
         if sharded:
             table = ShardedDeviceRaceTable(n_shards, shard_buckets, nslot,
@@ -517,13 +600,17 @@ def main_path(device, *, n_buckets, shard_buckets, n_shards, nslot, vdim,
               f"{run}")
         for name, n in run.items():
             launches[name] = launches.get(name, 0) + n
+        by_table[type(table).__name__] = run
         if measure is not None:
             measured.update(measure(table, wl, sharded))
-        del table
-        gc.collect()
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
-    return dict(launches=launches, measured=measured)
+        tables.append(table)
+    compared = compare(tables, wl) if compare is not None else None
+    del table, tables
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(launches=launches, by_table=by_table, measured=measured,
+                compared=compared)
 
 
 # ------------------------------------------------------- 5. lookup timing
@@ -573,12 +660,17 @@ def host_breakdown(table, key_batches, sharded: bool, device,
                    calls: int = 100) -> dict:
     """Median host time (ms) of each step of ``lookup_batch``, run one after
     another as it runs them: key hashing, the dirty-bucket check, the ops
-    call (int32 conversion, copy of the hashed keys to the card, checks,
-    launch), and the wait for the card. ``h2d`` times the copies alone,
-    which the ops call contains."""
+    call (int32 conversion, the copies its route makes, checks, launch),
+    and the wait for the card. ``h2d`` times those copies alone, which the
+    ops call contains: the hashed keys' two arrays for the table; for the
+    sharded table the one packed routing array on the device route and
+    nothing on the by-value route (``h2d_copies`` says how many), and
+    ``pack`` times the packing, also inside the ops call."""
     lookup = ops.race_lookup_sharded if sharded else ops.race_lookup
     steps = ("hash", "sync", "ops_call", "wait")
-    parts = {name: [] for name in steps + ("h2d",)}
+    parts = {name: [] for name in steps + ("h2d",) + (("pack",) if sharded
+                                                      else ())}
+    copies = 0
     for i in range(calls):
         keys = key_batches[i % len(key_batches)]
         t = [time.perf_counter()]
@@ -595,22 +687,81 @@ def host_breakdown(table, key_batches, sharded: bool, device,
         for name, a, b in zip(steps, t, t[1:]):
             parts[name].append((b - a) * 1e3)
         t0 = time.perf_counter()
-        for a in args:
+        if sharded:
+            routing = kern.pack_routing(*args)
+            parts["pack"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            host = kern.sharded_route(True, len(keys)) \
+                == "race_lookup_sharded_byval"
+            copied = [] if host else [routing]
+        else:
+            copied = args
+        for a in copied:
             torch.as_tensor(a).to(device)
         torch.cuda.synchronize(device)
         parts["h2d"].append((time.perf_counter() - t0) * 1e3)
-    return {name: float(np.median(v)) for name, v in parts.items()}
+        copies = len(copied)
+    out = {name: float(np.median(v)) for name, v in parts.items()}
+    out["h2d_copies"] = copies
+    return out
+
+
+def device_spans(fn, device) -> dict:
+    """Device spans (kernels and copies) of one call of ``fn`` under
+    ``torch.profiler``: their count and their names. They are counted in
+    the active step of a schedule whose warm-up step runs ``fn`` once
+    first; a session started cold can lose its first device event."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            _sync(device)
+            prof.step()
+    names = collections.Counter(
+        e.name[:90] for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith("ProfilerStep"))     # the step's own span
+    return dict(spans=sum(names.values()), names=dict(names))
+
+
+def host_interleaved(tables, wl, device, calls: int = 200) -> dict:
+    """Host time (ms) of ``lookup_batch`` on each table at each batch size,
+    median and 90th percentile of ``calls`` calls each ending in a
+    synchronisation, the tables' calls taken in turns so that both see the
+    same host: {batch: {table: [p50, p90]}}."""
+    out = {}
+    for size, batches in wl["reads"].items():
+        times = {type(t).__name__: [] for t in tables}
+        for i in range(calls):
+            keys = wl["keys"][batches[i % len(batches)]]
+            for t in tables if i % 2 else tables[::-1]:
+                t0 = time.perf_counter()
+                t.lookup_batch(keys)
+                torch.cuda.synchronize(device)
+                times[type(t).__name__].append(
+                    (time.perf_counter() - t0) * 1e3)
+        out[size] = {name: np.percentile(v, [50, 90]).tolist()
+                     for name, v in times.items()}
+        print(f"time lookup_batch batch {size}, the tables in turns "
+              f"({calls} calls each), p50/p90 ms: {out[size]}")
+    return out
 
 
 def measure_table(table, wl, sharded: bool, device, launches_per_batch=64,
-                  host_calls=200):
+                  host_calls=200, span_batch=512):
     """Times of the table's kernels at each batch size: kernel and plain
     version device time, the bound, and the host time of ``lookup_batch``
     (median and 90th percentile over ``host_calls`` calls, each ending in a
-    synchronisation)."""
+    synchronisation). The sharded kernel's device route is timed on routing
+    already packed on the card at every batch, its by-value route on host
+    routing where it takes the batch; ``main_path`` marks the route that
+    ``lookup_batch`` takes there. At ``span_batch`` keys, the device spans
+    of one ``lookup_batch``."""
     out = {}
-    names = ["race_lookup_sharded"] if sharded else ["race_lookup_tiled",
-                                                    "race_lookup_scalar"]
+    names = ["race_lookup_sharded_byval", "race_lookup_sharded"] if sharded \
+        else ["race_lookup_tiled", "race_lookup_scalar"]
     for size, batches in wl["reads"].items():
         inputs, need = [], []
         for idx in batches:
@@ -620,14 +771,19 @@ def measure_table(table, wl, sharded: bool, device, launches_per_batch=64,
             need.append(_bytes_needed(table, fps, bidx, sidx, table.nslot,
                                       table.vdim))
             arrays = (fps, bidx) + ((sidx,) if sharded else ())
-            inputs.append([torch.from_numpy(a).to(device) for a in arrays])
+            card = [torch.from_numpy(a).to(device) for a in arrays]
+            if sharded:
+                routing = kern.pack_routing(*arrays)
+                card += [routing, torch.from_numpy(routing).to(device)]
+            inputs.append(card)
         fp, val = table.fp_table, table.val_table
 
         def cycle(fn):
             it = itertools.cycle(inputs)
             return lambda: fn(*next(it))
 
-        plain = ((lambda q, b, s: race_lookup_sharded_ref(fp, val, q, b, s))
+        plain = ((lambda q, b, s, *_: race_lookup_sharded_ref(fp, val, q, b,
+                                                             s))
                  if sharded else (lambda q, b: race_lookup_ref(fp, val, q, b)))
         plain_ms = device_ms(cycle(plain), 16, device)
         host = []
@@ -639,10 +795,16 @@ def measure_table(table, wl, sharded: bool, device, launches_per_batch=64,
         host_p50, host_p90 = np.percentile(host, [50, 90]).tolist()
         split = host_breakdown(table, [wl["keys"][idx] for idx in batches],
                                sharded, device)
+        spans = device_spans(lambda: table.lookup_batch(
+            wl["keys"][batches[0]]), device) if size == span_batch else None
+        main_route = kern.sharded_route(True, size) if sharded else None
         for name in names:
-            if name == "race_lookup_sharded":
-                fn = lambda q, b, s, qb=kern.QBLOCK: kern.race_lookup_sharded(
-                    fp, val, q, b, s, qblock=qb)
+            if name == "race_lookup_sharded_byval":
+                if main_route != name:              # above the cap
+                    continue
+                fn = lambda *a: kern.race_lookup_sharded_packed(fp, val, a[3])
+            elif name == "race_lookup_sharded":
+                fn = lambda *a: kern.race_lookup_sharded_packed(fp, val, a[4])
             elif name == "race_lookup_scalar":
                 fn = lambda q, b: kern.race_lookup_scalar(fp, val, q, b)
             else:
@@ -653,19 +815,25 @@ def measure_table(table, wl, sharded: bool, device, launches_per_batch=64,
                 plain_ms=plain_ms,
                 bound_ms=statistics.mean(need) / HBM_BYTES_PER_S * 1e3,
                 bytes=statistics.mean(need),
+                main_path=main_route in (None, name),
                 lookup_batch_host_ms=host_p50,
                 lookup_batch_host_p90_ms=host_p90,
                 lookup_batch_calls=host_calls,
                 lookup_batch_host_breakdown_ms=split)
-            if name != "race_lookup_scalar":    # the JAX kernels' tile
+            if spans is not None:
+                r["lookup_batch_device_spans"] = spans["spans"]
+                r["lookup_batch_device_span_names"] = spans["names"]
+            if name == "race_lookup_tiled":     # the JAX kernels' tile
                 r["ms_qblock64"] = device_ms(
                     cycle(lambda *a: fn(*a, qb=64)), launches_per_batch,
                     device)
     for name, rows in out.items():
         for size, r in rows.items():
-            q64 = r.get("ms_qblock64", float("nan"))
-            print(f"time {name} batch {size}: kernel {r['ms']:.6f} ms "
-                  f"(qblock 64: {q64:.6f} ms), plain "
+            extra = "".join(f", {key} {r[key]}" for key in (
+                "ms_qblock64", "lookup_batch_device_spans") if key in r)
+            print(f"time {name} batch {size}"
+                  f"{'' if r['main_path'] else ' (not its main-path batch)'}:"
+                  f" kernel {r['ms']:.6f} ms{extra}, plain "
                   f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
                   f"({r['bytes']:.0f} B), lookup_batch host p50 "
                   f"{r['lookup_batch_host_ms']:.6f} ms p90 "
@@ -829,20 +997,22 @@ GATHER_SHAPES = (("slab 16 x 1 KiB", 16, 256),
 
 def _pack_inputs(n_payloads: int, elems: int, device):
     """The pack gather of ``n_payloads`` payloads of ``elems`` int32 each,
-    routed as ``stage_pack`` routes it: (src, src_row, valid) on the card."""
+    routed as ``stage_pack`` routes it: src on the card, (src_row, valid)
+    on the host."""
     rng = np.random.default_rng(n_payloads * elems)
     cmax = -(-elems // CHUNK)
     src = rng.integers(-2 ** 31, 2 ** 31, (n_payloads * cmax, CHUNK),
                        dtype=np.int64).astype(np.int32)
     rows, valid = stage_ops.pack_plan(np.full(n_payloads, elems), elems)
-    return [torch.from_numpy(a).to(device) for a in (src, rows, valid)]
+    return torch.from_numpy(src).to(device), rows, valid
 
 
 def _gather_bytes(rows, valid, chunk: int = CHUNK) -> int:
     """Bytes one gather must move, each counted once: the live elements of
     every distinct source chunk read, the output written, and the two
     int32 routing tables read."""
-    rows, valid = rows.cpu().numpy(), valid.cpu().numpy()
+    rows, valid = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                   for a in (rows, valid))
     live = valid > 0
     need = np.zeros(int(rows.max(initial=0)) + 1, np.int64)
     np.maximum.at(need, rows[live], np.minimum(valid[live], chunk))
@@ -850,33 +1020,52 @@ def _gather_bytes(rows, valid, chunk: int = CHUNK) -> int:
 
 
 def measure_gather(device, launches: int = 64) -> dict:
-    """Device time per launch of ``chunk_gather`` at each of
-    :data:`GATHER_SHAPES`, beside its plain version's, ``index_select``'s
+    """Device time per launch of each ``chunk_gather`` route at each of
+    :data:`GATHER_SHAPES`: the by-value route on host routing where it
+    takes the shape (the chain's path), the device route on routing
+    already on the card; beside the plain version's, ``index_select``'s
     (the same gather without the mask: one PyTorch call, used nowhere in
-    the port) and the bound (bytes over 3.35 TB/s)."""
-    out = {}
+    the port; the by-value route's time over it is ``ratio_to_library``)
+    and the bound (bytes over 3.35 TB/s). Returns {route: {shape: row}}."""
+    out: dict = {}
     for label, n, elems in GATHER_SHAPES:
         src, rows, valid = _pack_inputs(n, elems, device)
-        got = chunk_gather_cuda(src, rows, valid)
-        check(torch.equal(got, src.index_select(0, rows))
-              and torch.equal(got, chunk_gather_ref(src, rows, valid)),
-              f"chunk_gather {label}: differs from index_select or the plain "
+        rows_d, valid_d = (torch.from_numpy(a).to(device)
+                           for a in (rows, valid))
+        want = src.index_select(0, rows_d)
+        check(torch.equal(want, chunk_gather_ref(src, rows_d, valid_d)),
+              f"chunk_gather {label}: index_select differs from the plain "
               f"version")
         nbytes = _gather_bytes(rows, valid)
-        r = out[label] = dict(
-            nout=len(rows), bytes=nbytes,
-            ms=device_ms(lambda: chunk_gather_cuda(src, rows, valid),
-                         launches, device),
-            plain_ms=device_ms(lambda: chunk_gather_ref(src, rows, valid),
-                               16, device),
-            library_ms=device_ms(lambda: src.index_select(0, rows),
-                                 launches, device),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        print(f"time chunk_gather {label} ({r['nout']} chunks, {nbytes} B): "
-              f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
-              f"index_select {r['library_ms']:.6f} ms, bound "
-              f"{r['bound_ms']:.6f} ms")
-        del src, rows, valid, got
+        plain_ms = device_ms(lambda: chunk_gather_ref(src, rows_d, valid_d),
+                             16, device)
+        library_ms = device_ms(lambda: src.index_select(0, rows_d), launches,
+                               device)
+        host_route = gather_route(True, len(rows))
+        for route, routing in (("chunk_gather_byval", (rows, valid)),
+                               ("chunk_gather", (rows_d, valid_d))):
+            if route == "chunk_gather_byval" and host_route != route:
+                continue
+            got, ran = _route_of_call(
+                lambda: chunk_gather_cuda(src, *routing))
+            check(ran == route and torch.equal(got, want),
+                  f"{route} {label}: ran {ran}, or differs from "
+                  f"index_select")
+            ms = device_ms(lambda: chunk_gather_cuda(src, *routing),
+                           launches, device)
+            r = out.setdefault(route, {})[label] = dict(
+                nout=len(rows), bytes=nbytes, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, ratio_to_library=ms / library_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                stage_pack_route=route == host_route)
+            note = "" if r["stage_pack_route"] else "; not stage_pack's route"
+            print(f"time {route} {label} ({r['nout']} chunks, {nbytes} B"
+                  f"{note}): "
+                  f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                  f"index_select {library_ms:.6f} ms (kernel / index_select"
+                  f" {r['ratio_to_library']:.3f}), bound "
+                  f"{r['bound_ms']:.6f} ms")
+        del src, rows_d, valid_d, want, got
         torch.cuda.empty_cache()
     return out
 
@@ -894,8 +1083,9 @@ def slab_steps(payloads, raw, device, calls: int) -> dict:
     """Median host time (ms) of each step of ``encode_slab`` and
     ``decode_slab``, replayed one after another as they run them: building
     the payload matrix (``build``; ``parse`` of the header on decode), the
-    routing plan, the copies to the card, the kernel and the wait for it,
-    the copy back, and assembling the slab (``header``) or the payloads
+    routing plan, the copy of the source to the card (the routing stays on
+    the host for the by-value route), the kernel and the wait for it, the
+    copy back, and assembling the slab (``header``) or the payloads
     (``split``)."""
     parts: dict = {}
 
@@ -904,10 +1094,10 @@ def slab_steps(payloads, raw, device, calls: int) -> dict:
         return time.perf_counter()
 
     def gather(side, src, rows, valid, t):
-        args = [torch.from_numpy(a).to(device) for a in (src, rows, valid)]
+        src = torch.from_numpy(src).to(device)
         torch.cuda.synchronize(device)
         t = tick(f"{side}.h2d", t)
-        out = chunk_gather_cuda(*args)
+        out = chunk_gather_cuda(src, rows, valid)
         torch.cuda.synchronize(device)
         t = tick(f"{side}.kernel", t)
         out = out.cpu().numpy()
@@ -984,16 +1174,26 @@ def slab_host_times(device, n_payloads: int, nbytes: int,
     return r
 
 
-def chain_busy_share(device, cell: dict) -> dict:
+def chain_busy_share(device, cell: dict, spans: int) -> dict:
     """One epoch of ``cell`` under ``torch.profiler``: the card's busy time
-    over the epoch's host wall time (see :func:`profile_busy`)."""
+    over the epoch's host wall time (see :func:`profile_busy`), and the
+    device spans of one epoch (:func:`device_spans`); fails unless there
+    are ``spans`` of them."""
     run_chain(device, cell)                                 # warm-up
+    _sync(device)
     r = dict(cell=cell["name"], **profile_busy(
         lambda: run_chain(device, cell), device, "chunk_gather"))
+    counted = device_spans(lambda: run_chain(device, cell), device)
+    r.update(epoch_device_spans=counted["spans"],
+             epoch_device_span_names=counted["names"])
     print(f"profile chain {cell['name']}: epoch wall {r['wall_ms']:.3f} ms "
           f"(profiled), card busy {r['busy_ms']:.6f} ms over "
           f"{r['device_events']} device spans (chunk_gather "
-          f"{r['kernel_ms']:.6f} ms), idle share {_fmt_idle(r)}")
+          f"{r['kernel_ms']:.6f} ms), idle share {_fmt_idle(r)}; device "
+          f"spans of one epoch after a warm-up step {counted}")
+    check(counted["spans"] == spans,
+          f"chain {cell['name']}: {counted['spans']} device spans, expected "
+          f"{spans}")
     return r
 
 
@@ -1447,13 +1647,23 @@ def _graphed(fn, device):
     return graph.replay
 
 
-def ptxas_report(libraries=("flash_attention", "wkv"),
-                 kernels=("flash_mma_kernel", "wkv_split_kernel")) -> dict:
+#: the redesigned kernels, by entry point: ptxas must give each a 0-byte
+#: stack frame and no spills (the flash and WKV kernels are reported only)
+PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
+               "race_lookup_sharded": "race_lookup_sharded_kernel",
+               "chunk_gather_byval": "chunk_gather_byval_kernel"}
+
+
+def ptxas_report(libraries=("flash_attention", "wkv", "race_lookup",
+                            "serverless_stage"),
+                 kernels=("flash_mma_kernel", "wkv_split_kernel",
+                          *PTXAS_GATED.values())) -> dict:
     """Registers, stack, spills and static shared memory of every compiled
-    instance of ``kernels``, read from ``_build``'s ``-Xptxas -v`` logs of
-    ``libraries`` (the tensor-core flash kernel and the split WKV kernel
-    take their shared memory dynamically, at launch: the sizes of
-    ``MmaTile`` and ``SplitSmem`` in their sources)."""
+    instance of ``kernels``, read from
+    ``_build``'s ``-Xptxas -v`` logs of ``libraries`` (the tensor-core flash
+    kernel and the split WKV kernel take their shared memory dynamically,
+    at launch: the sizes of ``MmaTile`` and ``SplitSmem`` in their
+    sources)."""
     out: dict = {}
     for lib in libraries:
         fn = None
@@ -1643,17 +1853,46 @@ def measure_model_kernels(device) -> dict:
               + "".join(f"; {key} {m[key]}" for key in (
                   "ms_turns", "library_ms_turns", "contiguous_ms",
                   "ms_by_batch", "ctas", "sms") if key in m))
+    return out
+
+
+def ptxas_phase() -> dict:
+    """Print the ptxas report of every redesigned kernel; fail unless each
+    gated one has a 0-byte stack frame and no spills. Returns the report by
+    entry point."""
     ptxas = ptxas_report()
     for fn, rep in ptxas.items():
         print(f"ptxas {fn}: {rep}")
-    out["flash_attention_mma"]["ptxas"] = {
-        fn: rep for fn, rep in ptxas.items() if "flash" in fn}
-    out["wkv_split"]["ptxas"] = {
-        fn: rep for fn, rep in ptxas.items() if "wkv" in fn}
+    by_entry = {"flash_attention_mma": "flash_mma_kernel",
+                "wkv_split": "wkv_split_kernel", **PTXAS_GATED}
+    out = {entry: {fn: rep for fn, rep in ptxas.items()
+                   if fn.startswith(kernel)}
+           for entry, kernel in by_entry.items()}
+    for entry in PTXAS_GATED:
+        check(out[entry], f"ptxas: no report of {entry}'s kernel")
+        for fn, rep in out[entry].items():
+            check(rep.get("stack_bytes") == 0
+                  and rep.get("spill_store_bytes") == 0
+                  and rep.get("spill_load_bytes") == 0,
+                  f"ptxas {fn}: stack or spills {rep}")
     return out
 
 
 # ------------------------------------------------------------------- main
+#: launches each main-path run must make, exactly (see the module docstring)
+LOOKUP_LAUNCHES = {
+    "DeviceRaceTable": {"race_lookup_tiled": 25, "race_lookup_scalar": 1},
+    "ShardedDeviceRaceTable": {"race_lookup_sharded_byval": 16,
+                               "race_lookup_sharded": 9,
+                               "race_lookup_scalar": 4}}
+CHAIN_LAUNCHES = {"chunk_gather_byval": 70}
+#: keys of the sharded ``lookup_batch`` whose device spans are gated
+SPAN_BATCH = 512
+#: device spans of one profiled K = 64 x 1 KiB chain epoch: 16 gathers,
+#: each one copy of the source, the kernel and one copy back
+CHAIN_SPANS = 48
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1667,25 +1906,48 @@ def main() -> int:
           "full float32)")
     build_kernels()
     errs = kernel_parity(device)
-    errs["chunk_gather"] = stage_parity(device)
+    errs.update(stage_parity(device))
     errs.update(model_kernel_parity(device))
     cfg = REAL_SIZE
     res = main_path(device, **cfg,
                     measure=lambda t, wl, sh: measure_table(t, wl, sh,
-                                                            device))
+                                                            device),
+                    compare=lambda ts, wl: host_interleaved(ts, wl, device))
+    check(res["by_table"] == LOOKUP_LAUNCHES,
+          f"lookup launches {res['by_table']}, expected {LOOKUP_LAUNCHES}")
     chain = chain_path(device, **CHAIN_SIZE)
+    check(chain["launches"] == CHAIN_LAUNCHES,
+          f"chain launches {chain['launches']}, expected {CHAIN_LAUNCHES}")
     gather = measure_gather(device)
     host = {f"{n} x {b} B": slab_host_times(device, n, b)
             for n, b in ((16, 1024), (16, 64 * 1024))}
     k64 = chain_cells(**CHAIN_SIZE)[len(CHAIN_SIZE["ks"]) - 1]
-    busy = chain_busy_share(device, k64)
+    busy = chain_busy_share(device, k64, CHAIN_SPANS)
     serving = {m["arch"]: serve_model(device, **m, **SERVE_STEPS)
                for m in SERVE_SIZE}
     consistent = [consistency(device, arch=arch, route=route,
                               **CONSISTENCY_SIZE)
                   for arch, route in CONSISTENCY.items()]
     model_times = measure_model_kernels(device)
+    ptxas = ptxas_phase()
     torch.cuda.synchronize(device)
+    # the sharded routes against the tiled kernel, the in-run control, at
+    # each batch (the same bytes a lookup)
+    measured = res["measured"]
+    tiled = measured["race_lookup_tiled"]
+    for name in ("race_lookup_sharded_byval", "race_lookup_sharded"):
+        ratios = {}
+        for size, r in measured[name].items():
+            r["ratio_to_tiled"] = ratios[size] = r["ms"] / tiled[size]["ms"]
+        print(f"{name} / race_lookup_tiled by batch: {ratios}")
+    spans = measured["race_lookup_sharded_byval"][SPAN_BATCH][
+        "lookup_batch_device_spans"]
+    print(f"device spans of one lookup_batch of {SPAN_BATCH} keys: sharded "
+          f"{spans}, unsharded "
+          f"{tiled[SPAN_BATCH]['lookup_batch_device_spans']}")
+    check(spans == 1, f"a sharded lookup_batch of {SPAN_BATCH} keys showed "
+          f"{spans} device spans, expected 1 (the kernel): "
+          f"{measured['race_lookup_sharded_byval'][SPAN_BATCH]}")
     # launches of every main-path run, each counted from zero just before
     # it and read just after: lookups, chain hops, the serving prefills and
     # the float32 consistency prefills
@@ -1696,15 +1958,19 @@ def main() -> int:
     for row in consistent:
         launches.update(row["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
-    top = max(cfg["batches"])
     kernels = []
     model_runs = {"flash_attention_mma": dict(serve=qwen2),
                   "flash_attention": dict(consistency=consistent[0]),
                   "wkv_split": dict(serve=rwkv6, consistency=consistent[1]),
                   "wkv": dict(main_path=False)}
+    #: the batch or shape each lookup and gather entry point is reported at
+    headline = {"race_lookup_tiled": 4096, "race_lookup_scalar": 4096,
+                "race_lookup_sharded_byval": 512, "race_lookup_sharded": 4096,
+                "chunk_gather_byval": GATHER_SHAPES[0][0],
+                "chunk_gather": GATHER_SHAPES[2][0]}
     for name in ENTRY_POINTS:
         n = launches.get(name, 0)
-        check(n > 0 or name == "wkv",
+        check(n > 0 or name in OFF_MAIN_PATH,
               f"{name} was not launched on the main path")
         bound_by = "bytes"
         if name in model_times:
@@ -1715,23 +1981,31 @@ def main() -> int:
                          flops=r["flops"], **{
                              key: r[key] for key in (
                                  "ms_turns", "library_ms_turns",
-                                 "contiguous_ms", "ms_by_batch", "ptxas")
+                                 "contiguous_ms", "ms_by_batch")
                              if key in r},
                          **model_runs[name])
-        elif name == "chunk_gather":
-            shape = GATHER_SHAPES[0][0]
-            r = gather[shape]
+        elif name in gather:
+            shape = headline[name]
+            r = gather[name][shape]
             extra = dict(library_ms=r["library_ms"],
                          library="torch.index_select (no mask)",
-                         shape=shape, by_shape=gather, slab_host=host,
-                         epoch_wall_ms={c: [w * 1e3 for w in row["walls_s"]]
-                                        for c, row in chain["cells"].items()},
-                         profile=busy)
+                         shape=shape, by_shape=gather[name])
+            if name == "chunk_gather_byval":
+                extra.update(slab_host=host, profile=busy, epoch_wall_ms={
+                    c: [w * 1e3 for w in row["walls_s"]]
+                    for c, row in chain["cells"].items()})
+            else:
+                extra["main_path"] = False
         else:
-            r = res["measured"][name][top]
-            extra = dict(library_ms=None, batch=top,
+            batch = headline[name]
+            r = measured[name][batch]
+            extra = dict(library_ms=None, batch=batch,
                          by_batch={str(s): v for s, v in
-                                   res["measured"][name].items()})
+                                   measured[name].items()},
+                         lookup_batch_host_in_turns_ms={
+                             str(s): v for s, v in res["compared"].items()})
+        if name in ptxas:
+            extra["ptxas"] = ptxas[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=n, max_abs_err=errs[name],

@@ -21,6 +21,10 @@ size and the budget has no counterpart here.
 Inputs are tensors on one device, or numpy arrays (moved to that device,
 or to ``device=``, which defaults to the CUDA card). Integer inputs become
 int32, as JAX's default 32-bit mode makes them; values keep their dtype.
+One exception: the sharded lookup keeps routing given as numpy arrays on the
+host when its kernel runs, and the kernel's wrapper takes it from there
+(``race_lookup.sharded_route``: by value up to ``BYVAL_CAP`` queries, else
+packed into one copy to the card).
 For tensors on the CPU every impl runs the plain version: that is the only
 place it stands in for a kernel. On a CUDA tensor a kernel impl launches
 its kernel or raises.
@@ -95,7 +99,9 @@ def race_lookup_sharded(fp_tables, val_tables, queries, bucket_idx,
 
     ``impl``:
       * ``"kernel"`` — the sharded kernel: each query reads its own shard
-        id, results go straight to input order (no host sort or scatter),
+        id, results go straight to input order (no host sort or scatter);
+        numpy routing stays on the host, where the kernel's wrapper picks
+        its route (``race_lookup.sharded_route``),
       * ``"scalar"`` — per-shard calls into the scalar kernel, as the JAX
         ``"pallas_scalar"`` impl does,
       * ``"ref"`` — the plain version.
@@ -104,8 +110,19 @@ def race_lookup_sharded(fp_tables, val_tables, queries, bucket_idx,
         raise ValueError(f"unknown impl {impl!r}; expected one of "
                          f"{SHARDED_IMPLS}")
     _check_shards(shard_idx, len(fp_tables))
-    val_tables, fp_tables, queries, bucket_idx, shard_idx = _on_device(
-        device, val_tables, fp_tables, queries, bucket_idx, shard_idx)
+    routing = (queries, bucket_idx, shard_idx)
+    if any(isinstance(a, torch.Tensor) for a in routing):
+        val_tables, fp_tables, queries, bucket_idx, shard_idx = _on_device(
+            device, val_tables, fp_tables, *routing)
+    else:
+        val_tables, fp_tables = _on_device(device, val_tables, fp_tables)
+        if impl == "kernel" and fp_tables.device.type == "cuda":
+            queries, bucket_idx, shard_idx = (
+                np.ascontiguousarray(a, np.int32) for a in routing)
+            return _sharded_kernel(fp_tables, val_tables, queries,
+                                   bucket_idx, shard_idx, qblock=qblock)
+        queries, bucket_idx, shard_idx = on_device(
+            fp_tables.device, routing, (torch.int32,) * 3)
     if impl == "ref" or fp_tables.device.type == "cpu":
         return race_lookup_sharded_ref(fp_tables, val_tables, queries,
                                        bucket_idx, shard_idx)

@@ -91,10 +91,18 @@ def chunk_gather(src, src_row, valid, impl: str = "kernel",
     device, or numpy arrays (moved to that device, or to ``device=``,
     which defaults to the CUDA card); all become int32, as JAX's default
     32-bit mode makes them. Returns a (NOUT, chunk) int32 tensor on that
-    device.
+    device. When the kernel runs, routing given as numpy arrays stays on
+    the host, where the kernel's wrapper picks its route
+    (``stage.gather_route``: by value up to ``BYVAL_CAP`` chunks).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if not any(isinstance(a, torch.Tensor) for a in (src_row, valid)):
+        (src,) = on_device(device, (src,), (torch.int32,))
+        if impl == "kernel" and src.device.type == "cuda":
+            return chunk_gather_cuda(
+                src, np.ascontiguousarray(src_row, np.int32),
+                np.ascontiguousarray(valid, np.int32), chunk=chunk)
     src, src_row, valid = on_device(device, (src, src_row, valid),
                                     (torch.int32,) * 3)
     if impl == "ref" or src.device.type == "cpu":

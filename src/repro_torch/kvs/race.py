@@ -238,7 +238,9 @@ class ShardedDeviceRaceTable(_ResidentTables):
 
     def lookup_batch(self, keys: np.ndarray, impl: str = "kernel"):
         """keys -> (values (NQ, VDIM) float32, found (NQ,) int32) in input
-        order. ``impl`` as in ``ops.race_lookup_sharded``."""
+        order. ``impl`` as in ``ops.race_lookup_sharded``. The hashed
+        routing stays on the host: the kernel takes up to 2,032 keys by
+        value, with no copy to the card, and more in one copy."""
         fps, bidx = query_hashes(keys, self.n_buckets)
         sidx = query_shards(keys, self.n_shards)
         self.sync()

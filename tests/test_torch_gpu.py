@@ -29,6 +29,7 @@ from repro_torch.kernels.race_lookup.ref import (
     make_table, race_lookup_ref, race_lookup_sharded_ref)
 from repro_torch.kernels.serverless_stage import ops as stage_ops
 from repro_torch.kernels.serverless_stage.ref import chunk_gather_ref
+from repro_torch.kernels.serverless_stage import stage
 from repro_torch.kernels.serverless_stage.stage import chunk_gather_cuda
 from repro_torch.kvs import DeviceRaceTable, ShardedDeviceRaceTable
 from repro_torch.models import decode_step, forward_full, init_params, prefill
@@ -231,14 +232,230 @@ def test_krcore_chain_epoch_on_the_card_equals_the_cpu(cuda):
         _build.launches.clear()
         rep = cluster.env.run_process(runner.run_batch(
             chain, ["n0", "n1", "n2"], len(payloads), payloads), "chain")
-        # two hops, each one pack and one unpack per slab (two slabs)
-        assert _build.launches["chunk_gather"] == (8 if device == cuda
-                                                   else 0)
+        # two hops, each one pack and one unpack per slab (two slabs), all
+        # on the by-value route: the planners' routing stays on the host
+        assert dict(_build.launches) == ({"chunk_gather_byval": 8}
+                                         if device == cuda else {})
         exp = expected_outputs(reg, chain, payloads)
         assert all(np.array_equal(a, b) for a, b in zip(rep.outputs, exp))
         reports[str(device)] = (rep.total_us, rep.transfer_us,
                                 [vars(h) for h in rep.hops])
     assert reports[str(cuda)] == reports["cpu"]
+
+
+# ------------------------------------- the by-value and device routes
+def _launched(fn):
+    """Run ``fn``; return its result and the launches it made."""
+    _build.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches)
+
+
+def _sharded_case(cuda, nslot, nq, dtype, ns=3, nb=16, vdim=256, seed=0):
+    """Random fingerprints from a small range (slots repeat, many are
+    empty), bucket ids partly out of range, ragged shards."""
+    rng = np.random.default_rng(seed)
+    fp = torch.from_numpy(rng.integers(0, 40, (ns, nb, nslot))
+                          .astype(np.int32)).to(cuda)
+    vt = torch.from_numpy(rng.standard_normal((ns, nb, nslot, vdim))
+                          .astype(np.float32)).to(cuda, dtype)
+    q = rng.integers(0, 40, nq).astype(np.int32)
+    b = rng.integers(-3, nb + 3, (nq, 2)).astype(np.int32)
+    s = rng.choice(ns, nq, p=[0.7, 0.3] + [0.0] * (ns - 2)).astype(np.int32)
+    return fp, vt, (q, b, s)
+
+
+def _both_sharded_routes(cuda, fp, vt, host, qblock=kern.QBLOCK):
+    card = tuple(torch.from_numpy(a).to(cuda) for a in host)
+    want = race_lookup_sharded_ref(fp, vt, *card)
+    nq = len(host[0])
+    for on_host, args in ((True, host), (False, card)):
+        got, ran = _launched(lambda: kern.race_lookup_sharded(
+            fp, vt, *args, qblock=qblock))
+        _assert_same(got, want)
+        assert ran == {kern.sharded_route(on_host, nq): 1}
+    return want
+
+
+CAP = kern.BYVAL_CAP
+
+
+@pytest.mark.parametrize("nslot", [4, 8, 16, 32])
+@pytest.mark.parametrize("nq", [1, 7, CAP - 1, CAP, CAP + 1])
+def test_sharded_routes_equal_plain(cuda, nslot, nq):
+    """Both routes at every NSLOT (4 and 8 pair two queries a warp, so an
+    odd NQ leaves a half warp idle) and around the by-value cap; bfloat16
+    values at NSLOT 8."""
+    dtype = torch.bfloat16 if nslot == 8 else torch.float32
+    fp, vt, host = _sharded_case(cuda, nslot, nq, dtype, seed=nslot + nq)
+    want = _both_sharded_routes(cuda, fp, vt, host)
+    assert 0 < int(want[1].sum()) or nq < 8
+
+
+@pytest.mark.parametrize("qblock", [1, 3, 7, 64])
+@pytest.mark.parametrize("nslot", [8, 16])
+def test_sharded_routes_take_any_qblock(cuda, qblock, nslot):
+    fp, vt, host = _sharded_case(cuda, nslot, 301, torch.float32, seed=qblock)
+    _both_sharded_routes(cuda, fp, vt, host, qblock=qblock)
+
+
+@pytest.mark.parametrize("vdim,dtype", [(33, torch.bfloat16),
+                                        (3, torch.float32),
+                                        (48, torch.float32)])
+def test_sharded_routes_copy_any_row_size(cuda, vdim, dtype):
+    """Rows that are not a multiple of 16 bytes take narrower copy units."""
+    fp, vt, host = _sharded_case(cuda, 8, 257, dtype, vdim=vdim)
+    _both_sharded_routes(cuda, fp, vt, host)
+
+
+def test_sharded_routes_refuse_each_others_routing(cuda):
+    fp, vt, (q, b, s) = _sharded_case(cuda, 8, CAP + 1, torch.float32)
+    routing = kern.pack_routing(q, b, s)
+    card = torch.from_numpy(routing).to(cuda)
+    out = torch.empty((CAP + 1, 256), device=cuda)
+    found = torch.empty(CAP + 1, dtype=torch.int32, device=cuda)
+    lib = kern._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(symbol, ptr, nq):
+        _build.launch(lib, symbol, fp.data_ptr(), vt.data_ptr(), ptr,
+                      out.data_ptr(), found.data_ptr(), nq, 3, 16, 8,
+                      256 * 4, kern.QBLOCK, stream)
+
+    _build.launches.clear()
+    for symbol, ptr, nq in (
+            ("race_lookup_sharded_byval", card.data_ptr(), 64),  # on card
+            ("race_lookup_sharded_byval", routing.ctypes.data, CAP + 1),
+            ("race_lookup_sharded", routing.ctypes.data, 64)):   # on host
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call(symbol, ptr, nq)
+    assert not _build.launches
+    call("race_lookup_sharded_byval", routing.ctypes.data, CAP)
+    call("race_lookup_sharded", card.data_ptr(), CAP + 1)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"race_lookup_sharded_byval": 1,
+                                     "race_lookup_sharded": 1}
+
+
+def test_sharded_ops_route_by_where_the_routing_lies(cuda):
+    fp, vt, host = _sharded_case(cuda, 8, CAP + 1, torch.float32)
+    small = tuple(a[:512] for a in host)
+    counts = {}
+    for args in (small, host, tuple(torch.from_numpy(a).to(cuda)
+                                    for a in small)):
+        _, ran = _launched(lambda: ops.race_lookup_sharded(fp, vt, *args))
+        counts.update({k: counts.get(k, 0) + n for k, n in ran.items()})
+    _, ran = _launched(lambda: ops.race_lookup_sharded(
+        fp, vt, *(a[:0] for a in host)))                 # NQ = 0
+    assert not ran
+    assert counts == {"race_lookup_sharded_byval": 1,
+                      "race_lookup_sharded": 2}
+    with pytest.raises(IndexError):                      # shard id 3 of 3
+        ops.race_lookup_sharded(fp, vt, *small[:2], small[2] + 3)
+
+
+def test_sharded_table_lookups_take_the_by_value_route(cuda):
+    rng = np.random.default_rng(3)
+    keys = rng.permutation(np.unique(rng.integers(10_000, 2 ** 32 - 1,
+                                                   3000)))[:2500]
+    vals = rng.standard_normal((len(keys), 64), dtype=np.float32)
+    table = ShardedDeviceRaceTable(4, 509, 8, 64)
+    for k, v in zip(keys.tolist(), vals):
+        table.insert(k, v)
+    for n, route in ((512, "race_lookup_sharded_byval"),
+                     (CAP + 1, "race_lookup_sharded")):
+        (v, f), ran = _launched(lambda: table.lookup_batch(keys[:n]))
+        assert ran == {route: 1}
+        assert bool(f.all())
+        assert torch.equal(v, torch.from_numpy(vals[:n]).to(cuda))
+
+
+GCAP = stage.BYVAL_CAP
+
+
+def _both_gather_routes(cuda, src, rows, valid, chunk=128):
+    src = src if isinstance(src, torch.Tensor) \
+        else torch.from_numpy(src).to(cuda)
+    host = [np.asarray(a, np.int32) for a in (rows, valid)]
+    card = [torch.from_numpy(a).to(cuda) for a in host]
+    want = chunk_gather_ref(src, *card, chunk=chunk)
+    for on_host, routing in ((True, host), (False, card)):
+        got, ran = _launched(lambda: chunk_gather_cuda(src, *routing,
+                                                       chunk=chunk))
+        assert torch.equal(got, want)
+        assert ran == ({stage.gather_route(on_host, len(rows)): 1}
+                       if len(rows) else {})
+    return want
+
+
+@pytest.mark.parametrize("nout", [0, 1, 9, GCAP - 1, GCAP, GCAP + 1])
+@pytest.mark.parametrize("chunk", [128, 4, 6])
+def test_chunk_gather_routes_equal_plain(cuda, nout, chunk):
+    """Ragged NOUT around the by-value cap, every valid edge, repeated rows
+    and ids outside [0, NSRC); chunks of 4 and 6 take the scalar path."""
+    rng = np.random.default_rng(nout + chunk)
+    nsrc = 37
+    src = rng.integers(-2 ** 31, 2 ** 31, (nsrc, chunk),
+                       dtype=np.int64).astype(np.int32)
+    rows = rng.integers(-nsrc - 3, nsrc + 3, nout)
+    valid = rng.choice([0, 1, chunk // 2, chunk - 1, chunk, chunk + 1,
+                        4 * chunk, -1, -chunk, -2 ** 31], nout)
+    _both_gather_routes(cuda, src, rows, valid, chunk)
+
+
+def test_chunk_gather_routes_on_one_source_row_and_unaligned(cuda):
+    src = np.arange(1, 129, dtype=np.int32).reshape(1, 128)
+    got = _both_gather_routes(cuda, src, [0, -1, 5, -9], [128, 3, 200, 0])
+    assert int((got != 0).sum()) == 128 + 3 + 128
+    flat = torch.arange(1, 6 * 128 + 2, dtype=torch.int32, device=cuda)
+    _both_gather_routes(cuda, flat[1:].view(6, 128), [5, 0, -1, 9],
+                        [128, 3, 130, 0])              # the scalar path
+
+
+def test_chunk_gather_routes_refuse_each_others_routing(cuda):
+    src = torch.ones((3, 128), dtype=torch.int32, device=cuda)
+    out = torch.empty((GCAP + 1, 128), dtype=torch.int32, device=cuda)
+    host = np.zeros(GCAP + 1, np.int32)
+    card = torch.from_numpy(host).to(cuda)
+    lib = _build.library("serverless_stage", stage._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(symbol, ptr, nout):
+        _build.launch(lib, symbol, src.data_ptr(), ptr, ptr, out.data_ptr(),
+                      nout, 3, 128, stream)
+
+    _build.launches.clear()
+    for symbol, ptr, nout in (
+            ("chunk_gather_byval", card.data_ptr(), 4),       # on the card
+            ("chunk_gather_byval", host.ctypes.data, GCAP + 1),
+            ("chunk_gather", host.ctypes.data, 4)):            # on the host
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call(symbol, ptr, nout)
+    assert not _build.launches
+    call("chunk_gather_byval", host.ctypes.data, GCAP)
+    call("chunk_gather", card.data_ptr(), GCAP + 1)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"chunk_gather_byval": 1,
+                                     "chunk_gather": 1}
+
+
+def test_stage_ops_route_by_where_the_routing_lies(cuda):
+    """stage_pack keeps its plan on the host (by value); a plan beyond the
+    cap, or one already on the card, takes the device route."""
+    payloads = np.arange(16 * 300, dtype=np.int32).reshape(16, 300)
+    _, ran = _launched(lambda: stage_ops.stage_pack(payloads, [300] * 16,
+                                                    device=cuda))
+    assert ran == {"chunk_gather_byval": 1}
+    src = torch.ones((4, 128), dtype=torch.int32, device=cuda)
+    rows = np.zeros(GCAP + 1, np.int32)
+    _, ran = _launched(lambda: stage_ops.chunk_gather(src, rows, rows))
+    assert ran == {"chunk_gather": 1}
+    _, ran = _launched(lambda: stage_ops.chunk_gather(
+        src, torch.from_numpy(rows[:5]).to(cuda), rows[:5]))
+    assert ran == {"chunk_gather": 1}
+    with pytest.raises(ValueError, match="both on the card"):
+        chunk_gather_cuda(src, torch.from_numpy(rows[:5]).to(cuda), rows[:5])
 
 
 # ------------------------------------------------- flash attention and WKV

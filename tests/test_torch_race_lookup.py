@@ -303,3 +303,73 @@ def test_unknown_impl_and_cpu_tensors_at_kernel_wrappers_raise():
         kern.race_lookup_scalar(fp, vt, q, b)
     with pytest.raises(ValueError, match="CUDA"):
         kern.race_lookup_sharded(fp[None], vt[None], q, b, q)
+
+
+# ------------------------------------------ the sharded kernel's two routes
+CAP = kern.BYVAL_CAP
+
+
+@pytest.mark.parametrize("on_host", [True, False])
+@pytest.mark.parametrize("nq", [1, CAP - 1, CAP, CAP + 1, 4096])
+def test_sharded_route_dispatch(on_host, nq):
+    """Host routing up to the cap goes by value; routing on the card, or
+    longer, takes the device route."""
+    route = kern.sharded_route(on_host, nq)
+    assert route in kern.SHARDED_ROUTES and route in kern._SIGNATURES
+    assert (route == "race_lookup_sharded_byval") == (on_host and nq <= CAP)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_pack_routing_round_trips(as_tensor):
+    rng = np.random.RandomState(5)
+    nq = 37
+    q = rng.randint(-2 ** 31, 2 ** 31 - 1, nq).astype(np.int32)
+    b = rng.randint(-9, 2 ** 20, (nq, 2)).astype(np.int32)
+    s = rng.randint(-2, 7, nq).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (q, b, s)] if as_tensor \
+        else (q, b, s)
+    routing = kern.pack_routing(*args)
+    assert routing.dtype == np.int32 and routing.shape == (nq, 4)
+    assert routing.flags.c_contiguous
+    # the kernels read a query's row as one 16-byte int4: (x, y, z, w)
+    x, y, z, w = (routing.view(np.dtype([(c, "<i4") for c in "xyzw"]))
+                  .reshape(nq)[c] for c in "xyzw")
+    np.testing.assert_array_equal(x, q)
+    np.testing.assert_array_equal(np.stack([y, z], 1), b)
+    np.testing.assert_array_equal(w, s)
+    empty = kern.pack_routing(np.zeros(0, np.int32),
+                              np.zeros((0, 2), np.int32),
+                              np.zeros(0, np.int32))
+    assert empty.shape == (0, 4)
+
+
+def test_pack_routing_refuses_other_dtypes_and_shapes():
+    q = np.zeros(4, np.int32)
+    b = np.zeros((4, 2), np.int32)
+    with pytest.raises(TypeError, match="int32"):
+        kern.pack_routing(q.astype(np.int64), b, q)
+    with pytest.raises(ValueError, match="bucket_idx"):
+        kern.pack_routing(q, np.zeros((4, 3), np.int32), q)
+    with pytest.raises(ValueError, match="shard_idx"):
+        kern.pack_routing(q, b, q[:3])
+
+
+@pytest.mark.parametrize("nslot", [4, 8, 16, 32])
+@pytest.mark.parametrize("nq", [1, 7, CAP - 1, CAP, CAP + 1])
+def test_sharded_plain_matches_jax_at_route_edges(nslot, nq):
+    """The plain version at the batch sizes around the by-value cap, held
+    against JAX's oracle over the flattened shards. Fingerprints come from
+    a small range, so slots repeat and many are empty."""
+    rng = np.random.RandomState(nslot * 10_000 + nq)
+    ns, nb, vdim = 3, 16, 8
+    fp = rng.randint(0, 40, (ns, nb, nslot)).astype(np.int32)
+    vt = rng.randn(ns, nb, nslot, vdim).astype(np.float32)
+    q = rng.randint(0, 40, nq).astype(np.int32)
+    b = rng.randint(0, nb, (nq, 2)).astype(np.int32)
+    s = rng.randint(0, ns, nq).astype(np.int32)
+    v, f = ops.race_lookup_sharded(fp, vt, q, b, s, device="cpu")
+    _equal((v.numpy(), f.numpy()),
+           jax_ref(jnp.asarray(fp.reshape(ns * nb, nslot)),
+                   jnp.asarray(vt.reshape(ns * nb, nslot, vdim)),
+                   jnp.asarray(q), jnp.asarray(b + s[:, None] * nb)))
+    assert 0 < int(f.sum()) < nq or nq < 8

@@ -20,8 +20,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.serverless_stage import ops
 from repro_torch.kernels.serverless_stage.ref import (chunk_gather_ref,
                                                       pack_ref)
-from repro_torch.kernels.serverless_stage.stage import (CHUNK,
-                                                        chunk_gather_cuda)
+from repro_torch.kernels.serverless_stage.stage import (
+    BYVAL_CAP, CHUNK, ROUTES, _SIGNATURES, chunk_gather_cuda, gather_route)
 
 LENGTHS = [[], [0], [0, 0], [1], [127, 128, 129], [513, 0, 1, 300],
            [128] * 5, [1000, 3, 256, 0, 77]]
@@ -221,3 +221,43 @@ def test_stage_pack_unpack_edge_lengths_match_reference(lengths):
     if len(slab):
         with pytest.raises(ValueError, match="slab too small"):
             ops.stage_unpack(slab[:-1], lengths, lmax, device="cpu")
+
+
+# ================================================ the gather's two routes
+@pytest.mark.parametrize("on_host", [True, False])
+@pytest.mark.parametrize("nout", [1, BYVAL_CAP - 1, BYVAL_CAP,
+                                  BYVAL_CAP + 1, 131_072])
+def test_gather_route_dispatch(on_host, nout):
+    """Host routing up to the cap goes by value; routing on the card, or
+    longer (64 x 1 MiB is 131,072 chunks), takes the device route."""
+    route = gather_route(on_host, nout)
+    assert route in ROUTES and route in _SIGNATURES
+    assert (route == "chunk_gather_byval") == (on_host and nout <= BYVAL_CAP)
+
+
+def test_every_chain_gather_fits_the_by_value_route():
+    """A slab of 16 payloads of up to 64 KiB (the chain's largest) packs and
+    unpacks in at most BYVAL_CAP chunks."""
+    elems = 64 * 1024 // 4
+    for plan in (ops.pack_plan, ops.unpack_plan):
+        src_row, valid = plan(np.full(16, elems), elems)
+        assert len(src_row) == len(valid) == BYVAL_CAP
+        assert gather_route(True, len(src_row)) == "chunk_gather_byval"
+
+
+@pytest.mark.parametrize("nout", [1, 9, BYVAL_CAP - 1, BYVAL_CAP,
+                                  BYVAL_CAP + 1])
+def test_chunk_gather_plain_matches_jax_at_route_edges(nout):
+    src, src_row, valid = _gather_case(nout, 37, nout, CHUNK)
+    got = ops.chunk_gather(src, src_row, valid, device="cpu")
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jchunk_gather_ref(src, src_row, valid)))
+
+
+def test_kernel_wrapper_refuses_host_routing_that_is_not_int32():
+    src = torch.zeros((4, CHUNK), dtype=torch.int32)
+    rows = np.zeros(2, np.int64)
+    with pytest.raises(TypeError, match="int32"):
+        chunk_gather_cuda(src, rows, rows.astype(np.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        chunk_gather_cuda(src, rows.astype(np.int32), rows.astype(np.int32))
