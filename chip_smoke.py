@@ -19,11 +19,13 @@ plain version):
    and ``wkv.cu``; one ``nvcc`` per source, started together) and print
    each ``-Xptxas -v`` report.
 3. Kernel parity: each kernel against its plain PyTorch version on the
-   card, exact. The lookup kernels: values and ``found`` at the test shapes
-   (NSLOT 4/8/16/32, ragged tails, NQ = 0), out-of-range bucket ids, empty
-   and ragged shards, float32 and bfloat16 value tables; the sharded
-   kernel on both routes (routing on the host: ``race_lookup_sharded_byval``
-   up to 2,032 queries; on the card: ``race_lookup_sharded``) at NSLOT
+   card, exact. The lookup kernels, each on both routes (routing on the
+   host: ``race_lookup_{tiled,scalar,sharded}_byval`` up to 2,032 queries;
+   on the card: ``race_lookup_{tiled,scalar,sharded}``), and the scalar
+   kernel's calls a shard (``impl="scalar"``, the routing split by shard
+   on the host): values and ``found`` at the test shapes (NSLOT
+   4/8/16/32, ragged tails, NQ = 0), out-of-range bucket ids, empty and
+   ragged shards, float32 and bfloat16 value tables, and at NSLOT
    4/8/16/32 and NQ 1, odd, 2,031, 2,032 and 2,033. ``chunk_gather`` on both
    routes (routing on the host: ``chunk_gather_byval`` up to 2,048 chunks;
    on the card: ``chunk_gather``): NOUT 0, 1, ragged, 2,047, 2,048 and
@@ -61,22 +63,26 @@ plain version):
    ``_h1`` and ``shard_of_key`` share a multiplier, and with 4 shards and a
    bucket count divisible by 4 each shard's first choice reaches only a
    quarter of its buckets. Launch counters are cleared just before each
-   table's run and read just after; gates: the table launches 25
-   ``race_lookup_tiled`` and 1 ``race_lookup_scalar``, the sharded one 16
-   ``race_lookup_sharded_byval`` (its 64 and 512 batches, routing on the
-   host), 9 ``race_lookup_sharded`` (the 4,096 batches) and 4
-   ``race_lookup_scalar``.
-5. Lookup kernel times: per kernel and batch size, the device time per
+   table's run and read just after; gates (the hashed routing stays on the
+   host): the table launches 16 ``race_lookup_tiled_byval`` (its 64 and 512
+   batches), 9 ``race_lookup_tiled`` (the 4,096 batches) and 1
+   ``race_lookup_scalar``, the sharded one 16 ``race_lookup_sharded_byval``,
+   9 ``race_lookup_sharded`` and 4 ``race_lookup_scalar_byval`` (one a
+   shard).
+5. Lookup kernel times: per route and batch size, the device time per
    launch from CUDA events over many launches queued behind a spin kernel
-   (each sharded route on the routing it takes on the main path), the plain
+   (each route on the routing it takes on the main path), the plain
    version's time the same way, the host time of ``lookup_batch`` (median
    and 90th percentile of 200 calls) with a breakdown by step, the bound
-   (bytes the batch needs over 3.35 TB/s), and the sharded routes' time
-   over ``race_lookup_tiled``'s at the same batch (the in-run control).
-   Then, both tables alive, ``lookup_batch`` on each in turns (p50 and p90
-   of 200 calls each), so that the two see the same host. Gate: one
-   ``lookup_batch`` of 512 keys on the sharded table shows one device span
-   under ``torch.profiler`` (the kernel; no copy).
+   (bytes the batch needs over 3.35 TB/s), and each tiled and scalar
+   route's time over the sharded route's at the same batch (the in-run
+   control; the scalar calls a shard over ``race_lookup_sharded_byval``
+   on the same queries). Then, both tables alive, ``lookup_batch`` on each
+   in turns (p50 and p90 of 200 calls each), so that the two see the same
+   host. Gates: one ``lookup_batch`` of 512 keys shows one device span
+   under ``torch.profiler`` on either table (the kernel; no copy), and the
+   sharded table's ``impl="scalar"`` call of 4,096 keys shows four (a
+   kernel a shard; no copy, no gather, no scatter).
 6. Chain path at real size: ``ChainRunner(..., "krcore", device=cuda)`` over
    ``make_cluster(n_nodes=3, n_meta=1)``, stages extract -> transform ->
    load on n0 -> n1 -> n2 with ``default_registry``: the chain suite's
@@ -130,7 +136,9 @@ plain version):
     tokens it would scan, and held there on ``o`` and the final state.
     Then the registers, stack, spills and static shared memory of the
     redesigned kernels from the ptxas report of the build; gate: the
-    by-value and sharded kernels have a 0-byte stack frame and no spills.
+    lookup kernels (sharded, which the tiled routes launch at one shard,
+    and scalar) and ``chunk_gather_byval`` have a 0-byte stack frame and no
+    spills.
 11. A ``{"kernels": [...]}`` line with every C entry point (its launches
     are those of every main-path run above: lookups, chain hops, prefills
     and the float32 consistency prefills; each entry point but ``wkv`` and
@@ -171,7 +179,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.race_lookup import ops  # noqa: E402
 from repro_torch.kernels.race_lookup import race_lookup as kern  # noqa: E402
 from repro_torch.kernels.race_lookup.ref import (  # noqa: E402
-    make_table, race_lookup_ref, race_lookup_sharded_ref)
+    make_table, race_lookup_ref, race_lookup_routed_ref,
+    race_lookup_sharded_ref)
 from repro_torch.kernels.serverless_stage import (  # noqa: E402
     ops as stage_ops)
 from repro_torch.kernels.serverless_stage.ref import (  # noqa: E402
@@ -199,7 +208,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense tensor-core peak, same sheet
 FP32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
 SOURCES = {
+    "race_lookup_tiled_byval":
+        "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "race_lookup_tiled":
+        "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
+    "race_lookup_scalar_byval":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
     "race_lookup_scalar":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
@@ -219,7 +232,11 @@ SOURCES = {
     "wkv": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
 }
 REPLACES = {
+    "race_lookup_tiled_byval":
+        "src/repro/kernels/race_lookup/race_lookup.py:167",
     "race_lookup_tiled": "src/repro/kernels/race_lookup/race_lookup.py:167",
+    "race_lookup_scalar_byval":
+        "src/repro/kernels/race_lookup/race_lookup.py:76",
     "race_lookup_scalar": "src/repro/kernels/race_lookup/race_lookup.py:76",
     "race_lookup_sharded_byval":
         "src/repro/kernels/race_lookup/race_lookup.py:226",
@@ -315,22 +332,56 @@ def _same(got, want, errs, name, what):
           f"{err})")
 
 
-def _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs, what) -> None:
-    """The sharded kernel on the card's routing and on the host's, each
-    against the plain version, and the route each took."""
-    device = fp_t.device
-    q_t, b_t, s_t = (torch.from_numpy(a).to(device) for a in (fps, bidx, sidx))
-    want = race_lookup_sharded_ref(fp_t, vt_t, q_t, b_t, s_t)
-    for host, args in ((False, (q_t, b_t, s_t)), (True, (fps, bidx, sidx))):
-        route = kern.sharded_route(host, len(fps))
-        if not len(fps):                                   # no launch
-            got = kern.race_lookup_sharded(fp_t, vt_t, *args)
+def _check_routes(calls, want, errs, what) -> None:
+    """Each (route, fn, label) of ``calls``: fn's result against the plain
+    version ``want``, and the one route it launched (none for NQ = 0)."""
+    for route, fn, label in calls:
+        if not len(want[1]):                               # no launch
+            got = fn()
         else:
-            got, ran = _route_of_call(
-                lambda: kern.race_lookup_sharded(fp_t, vt_t, *args))
-            check(ran == route, f"sharded {what}: ran {ran}, not {route}")
-        _same(got, want, errs, route,
-              f"{what} routing on the {'host' if host else 'card'}")
+            got, ran = _route_of_call(fn)
+            check(ran == route, f"{what} {label}: ran {ran}, not {route}")
+        _same(got, want, errs, route, f"{what} {label}")
+
+
+def _unsharded_routes(fp_t, vt_t, fps, bidx, errs, what,
+                      qblock=kern.QBLOCK) -> None:
+    """The tiled and scalar kernels on the card's routing and on the
+    host's, each against the plain version, and the route each took."""
+    card = tuple(torch.from_numpy(a).to(fp_t.device) for a in (fps, bidx))
+    want = race_lookup_ref(fp_t, vt_t, *card)
+    calls = []
+    for host, args in ((False, card), (True, (fps, bidx))):
+        where = f"routing on the {'host' if host else 'card'}"
+        calls += [(kern.route("tiled", host, len(fps)),
+                   lambda a=args: kern.race_lookup_tiled(
+                       fp_t, vt_t, *a, qblock=qblock), f"tiled {where}"),
+                  (kern.route("scalar", host, len(fps)),
+                   lambda a=args: kern.race_lookup_scalar(fp_t, vt_t, *a),
+                   f"scalar {where}")]
+    _check_routes(calls, want, errs, what)
+
+
+def _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs, what) -> None:
+    """The sharded kernel on the card's routing and on the host's, and the
+    scalar kernel's calls a shard (``impl="scalar"``: the routing split by
+    shard on the host, card routing read back for that), each against the
+    plain version, and the route each took."""
+    card = tuple(torch.from_numpy(a).to(fp_t.device)
+                 for a in (fps, bidx, sidx))
+    want = race_lookup_sharded_ref(fp_t, vt_t, *card)
+    largest = int(np.bincount(sidx).max()) if len(sidx) else 0
+    calls = []
+    for host, args in ((False, card), (True, (fps, bidx, sidx))):
+        where = f"routing on the {'host' if host else 'card'}"
+        calls += [(kern.route("sharded", host, len(fps)),
+                   lambda a=args: kern.race_lookup_sharded(fp_t, vt_t, *a),
+                   f"sharded {where}"),
+                  (kern.route("scalar", True, largest),
+                   lambda a=args: ops.race_lookup_sharded(
+                       fp_t, vt_t, *a, impl="scalar"),
+                   f"scalar by shard, {where}")]
+    _check_routes(calls, want, errs, what)
 
 
 def kernel_parity(device) -> dict:
@@ -355,14 +406,9 @@ def kernel_parity(device) -> dict:
             fps, bidx = prep(qk)
             if nq and nq % 2:                      # out-of-range bucket ids
                 bidx[::3] = rng.integers(-5, nb + 5, bidx[::3].shape)
-            q_t = torch.from_numpy(fps).to(device)
-            b_t = torch.from_numpy(bidx).to(device)
-            want = race_lookup_ref(fp_t, vt_t, q_t, b_t)
-            what = f"nslot={nslot} vdim={vdim} {dtype} nq={nq}"
-            _same(kern.race_lookup_tiled(fp_t, vt_t, q_t, b_t, qblock=qblock),
-                  want, errs, "race_lookup_tiled", what)
-            _same(kern.race_lookup_scalar(fp_t, vt_t, q_t, b_t), want, errs,
-                  "race_lookup_scalar", what)
+            _unsharded_routes(fp_t, vt_t, fps, bidx, errs,
+                              f"nslot={nslot} vdim={vdim} {dtype} nq={nq}",
+                              qblock=qblock)
             cases += 1
     for ns, nb, nslot, vdim, dtype in ((3, 64, 8, 64, torch.float32),
                                        (5, 16, 8, 32, torch.float32),
@@ -387,21 +433,25 @@ def kernel_parity(device) -> dict:
             _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs,
                             f"ns={ns} counts={counts} {dtype}")
             cases += 1
-    # both routes at every NSLOT and at the by-value cap's edges: random
-    # fingerprints from a small range, so slots repeat and many are empty
+    # every route at every NSLOT and at the by-value cap's edges: random
+    # fingerprints from a small range, so slots repeat and many are empty;
+    # the unsharded kernels on shard 0's table
     cap = kern.BYVAL_CAP
-    for nslot in (4, 8, 16, 32):
+    for nslot, dtype in ((4, torch.float32), (8, torch.float32),
+                         (8, torch.bfloat16), (16, torch.float32),
+                         (32, torch.float32)):
         ns, nb = 3, 16
         fp_t = torch.from_numpy(rng.integers(0, 40, (ns, nb, nslot))
                                 .astype(np.int32)).to(device)
         vt_t = torch.from_numpy(rng.standard_normal((ns, nb, nslot, 256))
-                                .astype(np.float32)).to(device)
+                                .astype(np.float32)).to(device, dtype)
         for nq in (1, 7, cap - 1, cap, cap + 1):
             fps = rng.integers(0, 40, nq).astype(np.int32)
             bidx = rng.integers(-3, nb + 3, (nq, 2)).astype(np.int32)
             sidx = rng.integers(0, ns, nq).astype(np.int32)
-            _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs,
-                            f"nslot={nslot} nq={nq}")
+            what = f"nslot={nslot} {dtype} nq={nq}"
+            _sharded_routes(fp_t, vt_t, fps, bidx, sidx, errs, what)
+            _unsharded_routes(fp_t[0], vt_t[0], fps, bidx, errs, what)
             cases += 1
     torch.cuda.synchronize(device)
     print(f"parity: {cases} cases, every kernel equal to its plain version "
@@ -660,16 +710,15 @@ def host_breakdown(table, key_batches, sharded: bool, device,
                    calls: int = 100) -> dict:
     """Median host time (ms) of each step of ``lookup_batch``, run one after
     another as it runs them: key hashing, the dirty-bucket check, the ops
-    call (int32 conversion, the copies its route makes, checks, launch),
-    and the wait for the card. ``h2d`` times those copies alone, which the
-    ops call contains: the hashed keys' two arrays for the table; for the
-    sharded table the one packed routing array on the device route and
-    nothing on the by-value route (``h2d_copies`` says how many), and
-    ``pack`` times the packing, also inside the ops call."""
+    call (int32 conversion, packing, the copy its route makes, checks,
+    launch), and the wait for the card. ``pack`` and ``h2d`` time the
+    packing of the routing and that copy alone, both inside the ops call:
+    nothing on a by-value route, the packed routing on the device route
+    (``h2d_copies`` says how many)."""
     lookup = ops.race_lookup_sharded if sharded else ops.race_lookup
+    kernel = "sharded" if sharded else "tiled"
     steps = ("hash", "sync", "ops_call", "wait")
-    parts = {name: [] for name in steps + ("h2d",) + (("pack",) if sharded
-                                                      else ())}
+    parts = {name: [] for name in steps + ("pack", "h2d")}
     copies = 0
     for i in range(calls):
         keys = key_batches[i % len(key_batches)]
@@ -687,17 +736,13 @@ def host_breakdown(table, key_batches, sharded: bool, device,
         for name, a, b in zip(steps, t, t[1:]):
             parts[name].append((b - a) * 1e3)
         t0 = time.perf_counter()
-        if sharded:
-            routing = kern.pack_routing(*args)
-            parts["pack"].append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            host = kern.sharded_route(True, len(keys)) \
-                == "race_lookup_sharded_byval"
-            copied = [] if host else [routing]
-        else:
-            copied = args
+        routing = kern.pack_routing(*args)
+        parts["pack"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        copied = [] if kern.route(kernel, True, len(keys)) \
+            == kern.ROUTES[kernel][0] else [routing]
         for a in copied:
-            torch.as_tensor(a).to(device)
+            torch.from_numpy(a).to(device)
         torch.cuda.synchronize(device)
         parts["h2d"].append((time.perf_counter() - t0) * 1e3)
         copies = len(copied)
@@ -706,24 +751,37 @@ def host_breakdown(table, key_batches, sharded: bool, device,
     return out
 
 
-def device_spans(fn, device) -> dict:
+def device_spans(fn, device, cycles: int = 3) -> dict:
     """Device spans (kernels and copies) of one call of ``fn`` under
-    ``torch.profiler``: their count and their names. They are counted in
-    the active step of a schedule whose warm-up step runs ``fn`` once
-    first; a session started cold can lose its first device event."""
+    ``torch.profiler``: their count and their names. The profiler loses
+    device events now and then: a session started cold has lost its first
+    one, and an active step has come back with none at all. So ``fn`` is
+    profiled in ``cycles`` cycles, each a warm-up step and then an active
+    step of one call, and the cycle with the most spans is kept: a loss can
+    only lower a count, never raise it. ``by_cycle`` holds every cycle's
+    count."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    counted = []
+
+    def read(prof):
+        counted.append(collections.Counter(
+            e.name[:90] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")))  # the step's span
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
+                                   repeat=cycles),
+                 on_trace_ready=read) as prof:
+        for _ in range(2 * cycles):
             fn()
             _sync(device)
             prof.step()
-    names = collections.Counter(
-        e.name[:90] for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.name.startswith("ProfilerStep"))     # the step's own span
-    return dict(spans=sum(names.values()), names=dict(names))
+    check(len(counted) == cycles, f"the profiler closed {len(counted)} "
+          f"cycles, expected {cycles}")
+    names = max(counted, key=lambda c: sum(c.values()))
+    return dict(spans=sum(names.values()), names=dict(names),
+                by_cycle=[sum(c.values()) for c in counted])
 
 
 def host_interleaved(tables, wl, device, calls: int = 200) -> dict:
@@ -749,97 +807,177 @@ def host_interleaved(tables, wl, device, calls: int = 200) -> dict:
     return out
 
 
+def _host_ms(fn, calls: int) -> list:
+    """p50 and p90 host time (ms) of ``calls`` calls of ``fn(i)``, each
+    ending in a synchronisation."""
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return np.percentile(times, [50, 90]).tolist()
+
+
+def _scalar_by_shard_times(table, inputs, device, launches: int) -> dict:
+    """``race_lookup_scalar_byval`` as the sharded table's ``impl="scalar"``
+    call launches it: each shard's part of each batch, its routing by
+    value, cycled; beside ``race_lookup_sharded_byval`` on the same queries
+    (``control_ms``) and the plain version. Per launch."""
+    fp, val = table.fp_table, table.val_table
+    parts = []
+    for x in inputs:
+        fps, bidx, sidx = x["arrays"]
+        for sid, part in kern.split_by_shard(fps, bidx, sidx):
+            m = part[:, 3]
+            parts.append(dict(
+                sid=sid, part=part, card=torch.from_numpy(part).to(device),
+                control=kern.pack_routing(fps[m], bidx[m], sidx[m]),
+                need=_bytes_needed(table, fps[m], bidx[m], sidx[m],
+                                   table.nslot, table.vdim)))
+    out = (torch.empty((len(inputs[0]["arrays"][0]), table.vdim),
+                       device=device),
+           torch.empty(len(inputs[0]["arrays"][0]), dtype=torch.int32,
+                       device=device))
+
+    def cycle(fn):
+        it = itertools.cycle(parts)
+        return lambda: fn(next(it))
+
+    need = statistics.mean(p["need"] for p in parts)
+    return dict(
+        ms=device_ms(cycle(lambda p: kern.race_lookup_packed(
+            "scalar", fp[p["sid"]], val[p["sid"]], p["part"], out=out)),
+            launches, device),
+        control_ms=device_ms(cycle(lambda p: kern.race_lookup_packed(
+            "sharded", fp, val, p["control"])), launches, device),
+        plain_ms=device_ms(cycle(lambda p: race_lookup_routed_ref(
+            fp[p["sid"]], val[p["sid"]], p["card"], *out)), 16, device),
+        bound_ms=need / HBM_BYTES_PER_S * 1e3, bytes=need,
+        queries_per_launch=statistics.mean(len(p["part"]) for p in parts))
+
+
 def measure_table(table, wl, sharded: bool, device, launches_per_batch=64,
                   host_calls=200, span_batch=512):
-    """Times of the table's kernels at each batch size: kernel and plain
-    version device time, the bound, and the host time of ``lookup_batch``
-    (median and 90th percentile over ``host_calls`` calls, each ending in a
-    synchronisation). The sharded kernel's device route is timed on routing
-    already packed on the card at every batch, its by-value route on host
-    routing where it takes the batch; ``main_path`` marks the route that
-    ``lookup_batch`` takes there. At ``span_batch`` keys, the device spans
-    of one ``lookup_batch``."""
+    """Times of the table's lookup routes at each batch size: device time
+    per launch and the plain version's, the bound, and the host time of
+    ``lookup_batch`` (p50 and p90 over ``host_calls`` calls, each ending in
+    a synchronisation) with a breakdown by step. The by-value route is
+    timed on host routing at the batches it takes (up to the cap), the
+    device route on routing already packed on the card at every batch;
+    ``main_path`` marks the route that ``lookup_batch`` takes there. The
+    scalar kernel is timed at the largest batch, which its ``impl="scalar"``
+    call takes on the main path: the table's ``race_lookup_scalar`` on
+    routing packed on the card, the sharded table's
+    ``race_lookup_scalar_byval`` per shard (see
+    :func:`_scalar_by_shard_times`), each with the host time of that call.
+    Device spans of one ``lookup_batch``: at ``span_batch`` keys, and at
+    the largest batch through ``impl="scalar"``."""
+    kernel = "sharded" if sharded else "tiled"
+    byval, on_card = kern.ROUTES[kernel]
+    fp, val = table.fp_table, table.val_table
+    top = max(wl["reads"])
     out = {}
-    names = ["race_lookup_sharded_byval", "race_lookup_sharded"] if sharded \
-        else ["race_lookup_tiled", "race_lookup_scalar"]
     for size, batches in wl["reads"].items():
-        inputs, need = [], []
+        inputs = []
         for idx in batches:
             keys = wl["keys"][idx]
-            fps, bidx = query_hashes(keys, table.n_buckets)
-            sidx = query_shards(keys, table.n_shards) if sharded else None
-            need.append(_bytes_needed(table, fps, bidx, sidx, table.nslot,
-                                      table.vdim))
-            arrays = (fps, bidx) + ((sidx,) if sharded else ())
-            card = [torch.from_numpy(a).to(device) for a in arrays]
+            arrays = query_hashes(keys, table.n_buckets)
             if sharded:
-                routing = kern.pack_routing(*arrays)
-                card += [routing, torch.from_numpy(routing).to(device)]
-            inputs.append(card)
-        fp, val = table.fp_table, table.val_table
+                arrays += (query_shards(keys, table.n_shards),)
+            host = kern.pack_routing(*arrays)
+            inputs.append(dict(
+                arrays=arrays, host=host,
+                card=torch.from_numpy(host).to(device),
+                plain=[torch.from_numpy(a).to(device) for a in arrays],
+                need=_bytes_needed(table, *arrays[:2],
+                                   arrays[2] if sharded else None,
+                                   table.nslot, table.vdim)))
 
         def cycle(fn):
             it = itertools.cycle(inputs)
-            return lambda: fn(*next(it))
+            return lambda: fn(next(it))
 
-        plain = ((lambda q, b, s, *_: race_lookup_sharded_ref(fp, val, q, b,
-                                                             s))
-                 if sharded else (lambda q, b: race_lookup_ref(fp, val, q, b)))
-        plain_ms = device_ms(cycle(plain), 16, device)
-        host = []
-        for i in range(host_calls):
-            t0 = time.perf_counter()
-            table.lookup_batch(wl["keys"][batches[i % len(batches)]])
-            torch.cuda.synchronize(device)
-            host.append((time.perf_counter() - t0) * 1e3)
-        host_p50, host_p90 = np.percentile(host, [50, 90]).tolist()
-        split = host_breakdown(table, [wl["keys"][idx] for idx in batches],
-                               sharded, device)
-        spans = device_spans(lambda: table.lookup_batch(
-            wl["keys"][batches[0]]), device) if size == span_batch else None
-        main_route = kern.sharded_route(True, size) if sharded else None
-        for name in names:
-            if name == "race_lookup_sharded_byval":
-                if main_route != name:              # above the cap
-                    continue
-                fn = lambda *a: kern.race_lookup_sharded_packed(fp, val, a[3])
-            elif name == "race_lookup_sharded":
-                fn = lambda *a: kern.race_lookup_sharded_packed(fp, val, a[4])
-            elif name == "race_lookup_scalar":
-                fn = lambda q, b: kern.race_lookup_scalar(fp, val, q, b)
-            else:
-                fn = lambda q, b, qb=kern.QBLOCK: kern.race_lookup_tiled(
-                    fp, val, q, b, qblock=qb)
+        plain = race_lookup_sharded_ref if sharded else race_lookup_ref
+        plain_ms = device_ms(cycle(lambda x: plain(fp, val, *x["plain"])),
+                             16, device)
+        host_p50, host_p90 = _host_ms(lambda i: table.lookup_batch(
+            wl["keys"][batches[i % len(batches)]]), host_calls)
+        common = dict(
+            plain_ms=plain_ms,
+            bound_ms=statistics.mean(x["need"] for x in inputs)
+            / HBM_BYTES_PER_S * 1e3,
+            bytes=statistics.mean(x["need"] for x in inputs),
+            lookup_batch_host_ms=host_p50, lookup_batch_host_p90_ms=host_p90,
+            lookup_batch_calls=host_calls,
+            lookup_batch_host_breakdown_ms=host_breakdown(
+                table, [wl["keys"][idx] for idx in batches], sharded,
+                device))
+        timed = {on_card: lambda x, qb=kern.QBLOCK: kern.race_lookup_packed(
+            kernel, fp, val, x["card"], qblock=qb)}
+        if size <= kern.BYVAL_CAP:
+            timed[byval] = lambda x: kern.race_lookup_packed(
+                kernel, fp, val, x["host"])
+        main_route = kern.route(kernel, True, size)
+        for name, fn in timed.items():
             r = out.setdefault(name, {})[size] = dict(
                 ms=device_ms(cycle(fn), launches_per_batch, device),
-                plain_ms=plain_ms,
-                bound_ms=statistics.mean(need) / HBM_BYTES_PER_S * 1e3,
-                bytes=statistics.mean(need),
-                main_path=main_route in (None, name),
-                lookup_batch_host_ms=host_p50,
-                lookup_batch_host_p90_ms=host_p90,
-                lookup_batch_calls=host_calls,
-                lookup_batch_host_breakdown_ms=split)
-            if spans is not None:
-                r["lookup_batch_device_spans"] = spans["spans"]
-                r["lookup_batch_device_span_names"] = spans["names"]
+                main_path=name == main_route, **common)
             if name == "race_lookup_tiled":     # the JAX kernels' tile
                 r["ms_qblock64"] = device_ms(
-                    cycle(lambda *a: fn(*a, qb=64)), launches_per_batch,
+                    cycle(lambda x: fn(x, qb=64)), launches_per_batch,
                     device)
+        if size == span_batch:
+            spans = device_spans(lambda: table.lookup_batch(
+                wl["keys"][batches[0]]), device)
+            out[main_route][size].update(
+                lookup_batch_device_spans=spans["spans"],
+                lookup_batch_device_span_names=spans["names"],
+                lookup_batch_device_spans_by_cycle=spans["by_cycle"])
+        if size != top:
+            continue
+        if sharded:
+            r = _scalar_by_shard_times(table, inputs, device,
+                                       launches_per_batch)
+        else:
+            rows = [torch.from_numpy(kern.pack_routing(
+                *x["arrays"], np.arange(size, dtype=np.int32))).to(device)
+                for x in inputs]
+            it = itertools.cycle(rows)
+            r = dict(ms=device_ms(lambda: kern.race_lookup_packed(
+                "scalar", fp, val, next(it)), launches_per_batch, device),
+                **{k: common[k] for k in ("plain_ms", "bound_ms", "bytes")})
+        spans = device_spans(lambda: table.lookup_batch(
+            wl["keys"][batches[0]], impl="scalar"), device)
+        p50, p90 = _host_ms(lambda i: table.lookup_batch(
+            wl["keys"][batches[i % len(batches)]], impl="scalar"), host_calls)
+        name = "race_lookup_scalar_byval" if sharded \
+            else kern.route("scalar", True, size)
+        out[name] = {size: dict(
+            r, main_path=True, lookup_batch_scalar_host_ms=p50,
+            lookup_batch_scalar_host_p90_ms=p90,
+            lookup_batch_scalar_device_spans=spans["spans"],
+            lookup_batch_scalar_device_span_names=spans["names"],
+            lookup_batch_scalar_device_spans_by_cycle=spans["by_cycle"])}
     for name, rows in out.items():
         for size, r in rows.items():
             extra = "".join(f", {key} {r[key]}" for key in (
-                "ms_qblock64", "lookup_batch_device_spans") if key in r)
+                "ms_qblock64", "control_ms", "queries_per_launch",
+                "lookup_batch_device_spans",
+                "lookup_batch_device_spans_by_cycle",
+                "lookup_batch_scalar_device_spans",
+                "lookup_batch_scalar_device_spans_by_cycle",
+                "lookup_batch_scalar_host_ms") if key in r)
+            host = "" if "lookup_batch_host_ms" not in r else (
+                f", lookup_batch host p50 {r['lookup_batch_host_ms']:.6f} "
+                f"ms p90 {r['lookup_batch_host_p90_ms']:.6f} ms "
+                f"({r['lookup_batch_calls']} calls); host steps "
+                f"{r['lookup_batch_host_breakdown_ms']}")
             print(f"time {name} batch {size}"
                   f"{'' if r['main_path'] else ' (not its main-path batch)'}:"
                   f" kernel {r['ms']:.6f} ms{extra}, plain "
                   f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
-                  f"({r['bytes']:.0f} B), lookup_batch host p50 "
-                  f"{r['lookup_batch_host_ms']:.6f} ms p90 "
-                  f"{r['lookup_batch_host_p90_ms']:.6f} ms "
-                  f"({r['lookup_batch_calls']} calls); host steps "
-                  f"{r['lookup_batch_host_breakdown_ms']}")
+                  f"({r['bytes']:.0f} B){host}")
     return out
 
 
@@ -1185,12 +1323,14 @@ def chain_busy_share(device, cell: dict, spans: int) -> dict:
         lambda: run_chain(device, cell), device, "chunk_gather"))
     counted = device_spans(lambda: run_chain(device, cell), device)
     r.update(epoch_device_spans=counted["spans"],
-             epoch_device_span_names=counted["names"])
+             epoch_device_span_names=counted["names"],
+             epoch_device_spans_by_cycle=counted["by_cycle"])
     print(f"profile chain {cell['name']}: epoch wall {r['wall_ms']:.3f} ms "
           f"(profiled), card busy {r['busy_ms']:.6f} ms over "
           f"{r['device_events']} device spans (chunk_gather "
           f"{r['kernel_ms']:.6f} ms), idle share {_fmt_idle(r)}; device "
-          f"spans of one epoch after a warm-up step {counted}")
+          f"spans of one epoch (most of {len(counted['by_cycle'])} profiled "
+          f"cycles, each after a warm-up step) {counted}")
     check(counted["spans"] == spans,
           f"chain {cell['name']}: {counted['spans']} device spans, expected "
           f"{spans}")
@@ -1649,15 +1789,20 @@ def _graphed(fn, device):
 
 #: the redesigned kernels, by entry point: ptxas must give each a 0-byte
 #: stack frame and no spills (the flash and WKV kernels are reported only)
+#: (the tiled routes launch the sharded kernels at one shard)
 PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
                "race_lookup_sharded": "race_lookup_sharded_kernel",
+               "race_lookup_tiled_byval": "race_lookup_sharded_byval_kernel",
+               "race_lookup_tiled": "race_lookup_sharded_kernel",
+               "race_lookup_scalar_byval": "race_lookup_scalar_byval_kernel",
+               "race_lookup_scalar": "race_lookup_scalar_kernel",
                "chunk_gather_byval": "chunk_gather_byval_kernel"}
 
 
 def ptxas_report(libraries=("flash_attention", "wkv", "race_lookup",
                             "serverless_stage"),
                  kernels=("flash_mma_kernel", "wkv_split_kernel",
-                          *PTXAS_GATED.values())) -> dict:
+                          *set(PTXAS_GATED.values()))) -> dict:
     """Registers, stack, spills and static shared memory of every compiled
     instance of ``kernels``, read from
     ``_build``'s ``-Xptxas -v`` logs of ``libraries`` (the tensor-core flash
@@ -1881,13 +2026,18 @@ def ptxas_phase() -> dict:
 # ------------------------------------------------------------------- main
 #: launches each main-path run must make, exactly (see the module docstring)
 LOOKUP_LAUNCHES = {
-    "DeviceRaceTable": {"race_lookup_tiled": 25, "race_lookup_scalar": 1},
+    "DeviceRaceTable": {"race_lookup_tiled_byval": 16,
+                        "race_lookup_tiled": 9, "race_lookup_scalar": 1},
     "ShardedDeviceRaceTable": {"race_lookup_sharded_byval": 16,
                                "race_lookup_sharded": 9,
-                               "race_lookup_scalar": 4}}
+                               "race_lookup_scalar_byval": 4}}
 CHAIN_LAUNCHES = {"chunk_gather_byval": 70}
-#: keys of the sharded ``lookup_batch`` whose device spans are gated
+#: keys of the ``lookup_batch`` whose device spans are gated: one span, the
+#: kernel, on either table
 SPAN_BATCH = 512
+#: device spans of the sharded table's ``impl="scalar"`` call of the
+#: largest batch: one kernel a shard, no copy
+SCALAR_SPANS = 4
 #: device spans of one profiled K = 64 x 1 KiB chain epoch: 16 gathers,
 #: each one copy of the source, the kernel and one copy back
 CHAIN_SPANS = 48
@@ -1931,23 +2081,41 @@ def main() -> int:
     model_times = measure_model_kernels(device)
     ptxas = ptxas_phase()
     torch.cuda.synchronize(device)
-    # the sharded routes against the tiled kernel, the in-run control, at
-    # each batch (the same bytes a lookup)
+    # the tiled and scalar routes against the sharded ones, the in-run
+    # control, at each batch (the same bytes a lookup); the scalar kernel's
+    # calls a shard against the sharded by-value route on the same queries
     measured = res["measured"]
-    tiled = measured["race_lookup_tiled"]
-    for name in ("race_lookup_sharded_byval", "race_lookup_sharded"):
+    for name, control in (("race_lookup_tiled_byval",
+                           "race_lookup_sharded_byval"),
+                          ("race_lookup_tiled", "race_lookup_sharded"),
+                          ("race_lookup_scalar", "race_lookup_sharded"),
+                          ("race_lookup_scalar_byval", None)):
         ratios = {}
         for size, r in measured[name].items():
-            r["ratio_to_tiled"] = ratios[size] = r["ms"] / tiled[size]["ms"]
-        print(f"{name} / race_lookup_tiled by batch: {ratios}")
-    spans = measured["race_lookup_sharded_byval"][SPAN_BATCH][
-        "lookup_batch_device_spans"]
-    print(f"device spans of one lookup_batch of {SPAN_BATCH} keys: sharded "
-          f"{spans}, unsharded "
-          f"{tiled[SPAN_BATCH]['lookup_batch_device_spans']}")
-    check(spans == 1, f"a sharded lookup_batch of {SPAN_BATCH} keys showed "
-          f"{spans} device spans, expected 1 (the kernel): "
-          f"{measured['race_lookup_sharded_byval'][SPAN_BATCH]}")
+            base = r["control_ms"] if control is None \
+                else measured[control][size]["ms"]
+            r["ratio_to_sharded"] = ratios[size] = r["ms"] / base
+        print(f"{name} / {control or 'race_lookup_sharded_byval on the same '
+                                    'queries'} by batch: {ratios}")
+    top = max(cfg["batches"])
+    spans = {name: measured[name][SPAN_BATCH]["lookup_batch_device_spans"]
+             for name in ("race_lookup_tiled_byval",
+                          "race_lookup_sharded_byval")}
+    scalar_spans = {name: measured[name][top][
+        "lookup_batch_scalar_device_spans"]
+        for name in ("race_lookup_scalar", "race_lookup_scalar_byval")}
+    print(f"device spans of one lookup_batch of {SPAN_BATCH} keys by route: "
+          f"{spans}; of one impl='scalar' lookup_batch of {top} keys: "
+          f"{scalar_spans}")
+    for name, n in spans.items():
+        check(n == 1, f"a lookup_batch of {SPAN_BATCH} keys on {name} showed "
+              f"{n} device spans, expected 1 (the kernel): "
+              f"{measured[name][SPAN_BATCH]}")
+    n = scalar_spans["race_lookup_scalar_byval"]
+    check(n == SCALAR_SPANS,
+          f"a sharded impl='scalar' lookup_batch of {top} keys showed {n} "
+          f"device spans, expected {SCALAR_SPANS} (a kernel a shard): "
+          f"{measured['race_lookup_scalar_byval'][top]}")
     # launches of every main-path run, each counted from zero just before
     # it and read just after: lookups, chain hops, the serving prefills and
     # the float32 consistency prefills
@@ -1964,7 +2132,8 @@ def main() -> int:
                   "wkv_split": dict(serve=rwkv6, consistency=consistent[1]),
                   "wkv": dict(main_path=False)}
     #: the batch or shape each lookup and gather entry point is reported at
-    headline = {"race_lookup_tiled": 4096, "race_lookup_scalar": 4096,
+    headline = {"race_lookup_tiled_byval": 512, "race_lookup_tiled": 4096,
+                "race_lookup_scalar_byval": 4096, "race_lookup_scalar": 4096,
                 "race_lookup_sharded_byval": 512, "race_lookup_sharded": 4096,
                 "chunk_gather_byval": GATHER_SHAPES[0][0],
                 "chunk_gather": GATHER_SHAPES[2][0]}

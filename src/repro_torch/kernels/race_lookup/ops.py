@@ -21,10 +21,10 @@ size and the budget has no counterpart here.
 Inputs are tensors on one device, or numpy arrays (moved to that device,
 or to ``device=``, which defaults to the CUDA card). Integer inputs become
 int32, as JAX's default 32-bit mode makes them; values keep their dtype.
-One exception: the sharded lookup keeps routing given as numpy arrays on the
-host when its kernel runs, and the kernel's wrapper takes it from there
-(``race_lookup.sharded_route``: by value up to ``BYVAL_CAP`` queries, else
-packed into one copy to the card).
+One exception: routing given as numpy arrays (queries, bucket ids, shard
+ids) stays on the host when a kernel runs, and the kernel's wrapper takes
+it from there (``race_lookup.route``: by value up to ``BYVAL_CAP`` queries,
+else packed into one copy to the card).
 For tensors on the CPU every impl runs the plain version: that is the only
 place it stands in for a kernel. On a CUDA tensor a kernel impl launches
 its kernel or raises.
@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from ...device import on_device
-from .race_lookup import (QBLOCK, race_lookup_scalar, race_lookup_sharded
-                          as _sharded_kernel, race_lookup_tiled)
-from .ref import race_lookup_ref, race_lookup_sharded_ref
+from . import race_lookup as kern
+from .race_lookup import QBLOCK
+from .ref import race_lookup_ref, race_lookup_routed_ref, \
+    race_lookup_sharded_ref
 
 IMPLS = ("kernel", "tiled", "scalar", "ref")
 SHARDED_IMPLS = ("kernel", "scalar", "ref")
@@ -48,6 +49,21 @@ def _on_device(device, values, *ints):
     """(values, *int32 tensors) on one device (see ``device.on_device``)."""
     return on_device(device, (values, *ints),
                      (None,) + (torch.int32,) * len(ints))
+
+
+def _place(device, val, fp, routing, keep_on_host: bool):
+    """Tables on one device (that of any tensor among the inputs, else
+    ``device``) and the routing arrays as int32: numpy on the host when
+    all are numpy and ``keep_on_host(device of the tables)``, else tensors
+    beside the tables."""
+    if any(isinstance(a, torch.Tensor) for a in routing):
+        return _on_device(device, val, fp, *routing)
+    val, fp = _on_device(device, val, fp)
+    if keep_on_host(fp.device):
+        return [val, fp, *(np.ascontiguousarray(a, np.int32)
+                           for a in routing)]
+    return [val, fp, *on_device(fp.device, routing,
+                                (torch.int32,) * len(routing))]
 
 
 def race_lookup(fp_table, val_table, queries, bucket_idx,
@@ -61,14 +77,17 @@ def race_lookup(fp_table, val_table, queries, bucket_idx,
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    val_table, fp_table, queries, bucket_idx = _on_device(
-        device, val_table, fp_table, queries, bucket_idx)
-    if impl == "ref" or fp_table.device.type == "cpu":
+    kernel = impl != "ref"
+    val_table, fp_table, queries, bucket_idx = _place(
+        device, val_table, fp_table, (queries, bucket_idx),
+        lambda dev: kernel and dev.type == "cuda")
+    if not kernel or fp_table.device.type == "cpu":
         return race_lookup_ref(fp_table, val_table, queries, bucket_idx)
     if impl == "scalar":
-        return race_lookup_scalar(fp_table, val_table, queries, bucket_idx)
-    return race_lookup_tiled(fp_table, val_table, queries, bucket_idx,
-                             qblock=qblock)
+        return kern.race_lookup_scalar(fp_table, val_table, queries,
+                                       bucket_idx)
+    return kern.race_lookup_tiled(fp_table, val_table, queries, bucket_idx,
+                                  qblock=qblock)
 
 
 def _check_shards(shard_idx, ns: int) -> None:
@@ -87,6 +106,33 @@ def _check_shards(shard_idx, ns: int) -> None:
         raise IndexError(f"shard id outside [0, {ns}): min {lo}, max {hi}")
 
 
+def _scalar_by_shard(fp_tables, val_tables, queries, bucket_idx, shard_idx):
+    """The JAX ``"pallas_scalar"`` impl: one scalar call a shard with
+    queries, on that shard's tables, each writing its queries' rows of one
+    shared output (every row is written once). The routing is split on the
+    host; routing on the card is read back once for that."""
+    routing = (queries, bucket_idx, shard_idx)
+    if isinstance(queries, torch.Tensor):
+        packed = torch.cat([queries[:, None], bucket_idx,
+                            shard_idx[:, None]], dim=1).cpu().numpy()
+        routing = (packed[:, 0], packed[:, 1:3], packed[:, 3])
+    values, found = (
+        torch.empty((len(queries), val_tables.shape[-1]),
+                    dtype=val_tables.dtype, device=val_tables.device),
+        torch.empty(len(queries), dtype=torch.int32,
+                    device=val_tables.device))
+    plain = fp_tables.device.type == "cpu"
+    for sid, part in kern.split_by_shard(*routing):
+        if plain:
+            race_lookup_routed_ref(fp_tables[sid], val_tables[sid], part,
+                                   values, found)
+        else:
+            kern.race_lookup_packed("scalar", fp_tables[sid],
+                                    val_tables[sid], part,
+                                    out=(values, found))
+    return values, found
+
+
 def race_lookup_sharded(fp_tables, val_tables, queries, bucket_idx,
                         shard_idx, impl: str = "kernel", qblock: int = QBLOCK,
                         device=None):
@@ -101,41 +147,25 @@ def race_lookup_sharded(fp_tables, val_tables, queries, bucket_idx,
       * ``"kernel"`` — the sharded kernel: each query reads its own shard
         id, results go straight to input order (no host sort or scatter);
         numpy routing stays on the host, where the kernel's wrapper picks
-        its route (``race_lookup.sharded_route``),
+        its route (``race_lookup.route``),
       * ``"scalar"`` — per-shard calls into the scalar kernel, as the JAX
-        ``"pallas_scalar"`` impl does,
+        ``"pallas_scalar"`` impl does: the routing is split by shard on the
+        host and each call writes its queries' rows of the output (on the
+        CPU, each call runs the plain version),
       * ``"ref"`` — the plain version.
     """
     if impl not in SHARDED_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of "
                          f"{SHARDED_IMPLS}")
     _check_shards(shard_idx, len(fp_tables))
-    routing = (queries, bucket_idx, shard_idx)
-    if any(isinstance(a, torch.Tensor) for a in routing):
-        val_tables, fp_tables, queries, bucket_idx, shard_idx = _on_device(
-            device, val_tables, fp_tables, *routing)
-    else:
-        val_tables, fp_tables = _on_device(device, val_tables, fp_tables)
-        if impl == "kernel" and fp_tables.device.type == "cuda":
-            queries, bucket_idx, shard_idx = (
-                np.ascontiguousarray(a, np.int32) for a in routing)
-            return _sharded_kernel(fp_tables, val_tables, queries,
-                                   bucket_idx, shard_idx, qblock=qblock)
-        queries, bucket_idx, shard_idx = on_device(
-            fp_tables.device, routing, (torch.int32,) * 3)
+    val_tables, fp_tables, queries, bucket_idx, shard_idx = _place(
+        device, val_tables, fp_tables, (queries, bucket_idx, shard_idx),
+        lambda dev: impl == "scalar" or impl == "kernel" and dev.type == "cuda")
+    if impl == "scalar":
+        return _scalar_by_shard(fp_tables, val_tables, queries, bucket_idx,
+                                shard_idx)
     if impl == "ref" or fp_tables.device.type == "cpu":
         return race_lookup_sharded_ref(fp_tables, val_tables, queries,
                                        bucket_idx, shard_idx)
-    if impl == "kernel":
-        return _sharded_kernel(fp_tables, val_tables, queries, bucket_idx,
-                               shard_idx, qblock=qblock)
-    values = torch.zeros((len(queries), val_tables.shape[-1]),
-                         dtype=val_tables.dtype, device=val_tables.device)
-    found = torch.zeros(len(queries), dtype=torch.int32,
-                        device=val_tables.device)
-    for sid in torch.unique(shard_idx).tolist():
-        rows = torch.nonzero(shard_idx == sid).squeeze(1)
-        values[rows], found[rows] = race_lookup_scalar(
-            fp_tables[sid], val_tables[sid], queries[rows].contiguous(),
-            bucket_idx[rows].contiguous())
-    return values, found
+    return kern.race_lookup_sharded(fp_tables, val_tables, queries,
+                                    bucket_idx, shard_idx, qblock=qblock)

@@ -45,6 +45,17 @@ def race_lookup_sharded_ref(fp_tables, val_tables, queries, bucket_idx,
     return _select(fps, rows, b * nslot, queries, nslot)
 
 
+def race_lookup_routed_ref(fp_table, val_table, routing, values, found):
+    """Plain version of the scalar kernel on packed routing: ``routing``
+    (NQ, 4) int32 rows of (fingerprint, b0, b1, output row), numpy or a
+    tensor; each query's result goes to its row of ``values`` (N, VDIM) and
+    ``found`` (N,), in place."""
+    r = torch.as_tensor(routing, device=fp_table.device)
+    rows = r[:, 3].long()
+    values[rows], found[rows] = race_lookup_ref(fp_table, val_table, r[:, 0],
+                                                r[:, 1:3])
+
+
 def _select(fps, rows, first_row, queries, nslot):
     """First hit per query among its 2*NSLOT candidates -> its value row.
     ``first_row`` (NQ, 2) is the flat row of each candidate bucket's slot 0."""

@@ -201,7 +201,9 @@ class DeviceRaceTable(_ResidentTables):
 
     def lookup_batch(self, keys: np.ndarray, impl: str = "kernel"):
         """keys -> (values (NQ, VDIM) float32, found (NQ,) int32), on the
-        table's device. ``impl`` as in ``ops.race_lookup``."""
+        table's device. ``impl`` as in ``ops.race_lookup``. The hashed
+        routing stays on the host: the kernel takes up to 2,032 keys by
+        value, with no copy to the card, and more in one copy."""
         fps, bidx = query_hashes(keys, self.n_buckets)
         self.sync()
         return race_lookup(self.fp_table, self.val_table, fps, bidx,
@@ -240,7 +242,9 @@ class ShardedDeviceRaceTable(_ResidentTables):
         """keys -> (values (NQ, VDIM) float32, found (NQ,) int32) in input
         order. ``impl`` as in ``ops.race_lookup_sharded``. The hashed
         routing stays on the host: the kernel takes up to 2,032 keys by
-        value, with no copy to the card, and more in one copy."""
+        value, with no copy to the card, and more in one copy;
+        ``impl="scalar"`` splits it by shard there, each shard's call by
+        value up to 2,032 keys."""
         fps, bidx = query_hashes(keys, self.n_buckets)
         sidx = query_shards(keys, self.n_shards)
         self.sync()

@@ -105,15 +105,22 @@ def test_sharded_kernel_equals_plain(cuda, counts, dtype):
 
 def test_launch_counters_count_kernel_launches_only(cuda):
     fp, vt, q, b = _inputs(cuda, 64, 8, 64, 100)
+    hq, hb = q.cpu().numpy(), b.cpu().numpy()
     _build.launches.clear()
-    ops.race_lookup(fp, vt, q, b)
-    ops.race_lookup(fp, vt, q, b, impl="scalar")
-    ops.race_lookup(fp, vt, q, b, impl="ref")
+    for routing in ((q, b), (hq, hb)):            # on the card, on the host
+        ops.race_lookup(fp, vt, *routing)
+        ops.race_lookup(fp, vt, *routing, impl="scalar")
+        ops.race_lookup(fp, vt, *routing, impl="ref")
     kern.race_lookup_tiled(fp, vt, q[:0], b[:0])          # NQ = 0: no launch
+    kern.race_lookup_scalar(fp, vt, hq[:0], hb[:0])
     ops.race_lookup_sharded(fp[None], vt[None], q, b, torch.zeros_like(q))
+    ops.race_lookup_sharded(fp[None], vt[None], hq, hb, np.zeros_like(hq),
+                            impl="scalar")
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"race_lookup_tiled": 1,
                                      "race_lookup_scalar": 1,
+                                     "race_lookup_tiled_byval": 1,
+                                     "race_lookup_scalar_byval": 2,
                                      "race_lookup_sharded": 1}
     with pytest.raises(IndexError):
         ops.race_lookup_sharded(fp[None], vt[None], q, b, torch.ones_like(q))
@@ -274,7 +281,7 @@ def _both_sharded_routes(cuda, fp, vt, host, qblock=kern.QBLOCK):
         got, ran = _launched(lambda: kern.race_lookup_sharded(
             fp, vt, *args, qblock=qblock))
         _assert_same(got, want)
-        assert ran == {kern.sharded_route(on_host, nq): 1}
+        assert ran == {kern.route("sharded", on_host, nq): 1}
     return want
 
 
@@ -369,6 +376,165 @@ def test_sharded_table_lookups_take_the_by_value_route(cuda):
         assert ran == {route: 1}
         assert bool(f.all())
         assert torch.equal(v, torch.from_numpy(vals[:n]).to(cuda))
+
+
+# ----------------------- the tiled and scalar kernels' two routes
+def _unsharded_case(cuda, nslot, nq, dtype, nb=16, vdim=256, seed=0):
+    """As :func:`_sharded_case`, one table."""
+    fp, vt, (q, b, _) = _sharded_case(cuda, nslot, nq, dtype, ns=2, nb=nb,
+                                      vdim=vdim, seed=seed)
+    return fp[1].contiguous(), vt[1].contiguous(), (q, b)
+
+
+def _both_unsharded_routes(cuda, fp, vt, host, qblock=kern.QBLOCK):
+    card = tuple(torch.from_numpy(a).to(cuda) for a in host)
+    want = race_lookup_ref(fp, vt, *card)
+    nq = len(host[0])
+    for on_host, args in ((True, host), (False, card)):
+        for kernel, fn in (("tiled", lambda: kern.race_lookup_tiled(
+                fp, vt, *args, qblock=qblock)),
+                ("scalar", lambda: kern.race_lookup_scalar(fp, vt, *args))):
+            got, ran = _launched(fn)
+            _assert_same(got, want)
+            assert ran == {kern.route(kernel, on_host, nq): 1}
+    return want
+
+
+@pytest.mark.parametrize("nslot", [4, 8, 16, 32])
+@pytest.mark.parametrize("nq", [1, 7, CAP - 1, CAP, CAP + 1])
+def test_unsharded_routes_equal_plain(cuda, nslot, nq):
+    """The tiled and scalar kernels on both routes at every NSLOT and
+    around the by-value cap; bfloat16 values at NSLOT 8."""
+    dtype = torch.bfloat16 if nslot == 8 else torch.float32
+    fp, vt, host = _unsharded_case(cuda, nslot, nq, dtype, seed=nslot + nq)
+    want = _both_unsharded_routes(cuda, fp, vt, host)
+    assert 0 < int(want[1].sum()) or nq < 8
+
+
+@pytest.mark.parametrize("qblock", [1, 3, 7, 64])
+@pytest.mark.parametrize("nslot", [8, 16])
+def test_unsharded_routes_take_any_qblock(cuda, qblock, nslot):
+    fp, vt, host = _unsharded_case(cuda, nslot, 301, torch.float32,
+                                   seed=qblock)
+    _both_unsharded_routes(cuda, fp, vt, host, qblock=qblock)
+
+
+@pytest.mark.parametrize("vdim,dtype", [(33, torch.bfloat16),
+                                        (3, torch.float32),
+                                        (48, torch.float32)])
+def test_unsharded_routes_copy_any_row_size(cuda, vdim, dtype):
+    fp, vt, host = _unsharded_case(cuda, 8, 257, dtype, vdim=vdim)
+    _both_unsharded_routes(cuda, fp, vt, host)
+
+
+def test_unsharded_routes_refuse_each_others_routing(cuda):
+    fp, vt, (q, b) = _unsharded_case(cuda, 8, CAP + 1, torch.float32)
+    routing = kern.pack_routing(q, b, np.arange(CAP + 1, dtype=np.int32))
+    card = torch.from_numpy(routing).to(cuda)
+    out = torch.empty((CAP + 1, 256), device=cuda)
+    found = torch.empty(CAP + 1, dtype=torch.int32, device=cuda)
+    lib = kern._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(symbol, ptr, nq):
+        dims = (nq, CAP + 1, 16, 8, 256 * 4) if "scalar" in symbol \
+            else (nq, 16, 8, 256 * 4, kern.QBLOCK)
+        _build.launch(lib, symbol, fp.data_ptr(), vt.data_ptr(), ptr,
+                      out.data_ptr(), found.data_ptr(), *dims, stream)
+
+    _build.launches.clear()
+    for kernel in ("tiled", "scalar"):
+        byval, device = kern.ROUTES[kernel]
+        for symbol, ptr, nq in ((byval, card.data_ptr(), 64),   # on card
+                                (byval, routing.ctypes.data, CAP + 1),
+                                (device, routing.ctypes.data, 64),  # host
+                                (byval, routing.ctypes.data, 0),
+                                (device, card.data_ptr(), 0)):
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                call(symbol, ptr, nq)
+    assert not _build.launches
+    for kernel in ("tiled", "scalar"):
+        byval, device = kern.ROUTES[kernel]
+        call(byval, routing.ctypes.data, CAP)
+        call(device, card.data_ptr(), CAP + 1)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == dict.fromkeys(
+        [*kern.ROUTES["tiled"], *kern.ROUTES["scalar"]], 1)
+
+
+def test_scalar_kernel_writes_only_the_rows_its_routing_names(cuda):
+    """Each query writes the output row of its routing's fourth word; the
+    kernel skips rows outside [0, NOUT), and the wrapper refuses such rows
+    in host routing."""
+    fp, vt, (q, b) = _unsharded_case(cuda, 8, 40, torch.float32)
+    want = race_lookup_ref(fp, vt, *(torch.from_numpy(a).to(cuda)
+                                     for a in (q, b)))
+    rows = np.random.default_rng(5).permutation(60)[:40].astype(np.int32)
+    host = kern.pack_routing(q, b, rows)
+    for routing in (host, torch.from_numpy(host).to(cuda)):
+        out = (torch.full((60, 256), 7.0, device=cuda),
+               torch.full((60,), 9, dtype=torch.int32, device=cuda))
+        kern.race_lookup_packed("scalar", fp, vt, routing, out=out)
+        _assert_same((out[0][rows], out[1][rows]), want)
+        rest = np.setdiff1d(np.arange(60), rows)
+        assert bool((out[0][rest] == 7.0).all() and (out[1][rest] == 9).all())
+    bad = host.copy()
+    bad[[0, 1], 3] = -1, 60
+    out = (torch.full((60, 256), 7.0, device=cuda),
+           torch.full((60,), 9, dtype=torch.int32, device=cuda))
+    with pytest.raises(IndexError):
+        kern.race_lookup_packed("scalar", fp, vt, bad, out=out)
+    kern.race_lookup_packed("scalar", fp, vt, torch.from_numpy(bad).to(cuda),
+                            out=out)
+    _assert_same((out[0][rows[2:]], out[1][rows[2:]]),
+                 (want[0][2:], want[1][2:]))
+    assert bool((out[1][rest] == 9).all())
+
+
+def test_device_table_lookups_take_the_by_value_route(cuda):
+    rng = np.random.default_rng(4)
+    keys = rng.permutation(np.unique(rng.integers(10_000, 2 ** 32 - 1,
+                                                   3000)))[:2500]
+    vals = rng.standard_normal((len(keys), 64), dtype=np.float32)
+    table = DeviceRaceTable(2039, 8, 64)
+    for k, v in zip(keys.tolist(), vals):
+        table.insert(k, v)
+    for n, impl, route in ((512, "kernel", "race_lookup_tiled_byval"),
+                           (CAP + 1, "kernel", "race_lookup_tiled"),
+                           (512, "scalar", "race_lookup_scalar_byval"),
+                           (CAP + 1, "scalar", "race_lookup_scalar")):
+        (v, f), ran = _launched(lambda: table.lookup_batch(keys[:n],
+                                                           impl=impl))
+        assert ran == {route: 1}
+        assert bool(f.all())
+        assert torch.equal(v, torch.from_numpy(vals[:n]).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_scalar_launches_one_kernel_a_shard(cuda, dtype):
+    """``impl="scalar"``: one ``race_lookup_scalar_byval`` a shard with
+    queries, for routing on the host or on the card (read back once); a
+    shard with more than the cap takes the device route."""
+    fp, vt, host = _sharded_case(cuda, 8, 900, dtype, ns=5)
+    host[2][:4] = [2, 2, 3, 4]                    # shard 1 gets no query
+    host[2][host[2] == 1] = 0
+    want = race_lookup_sharded_ref(fp, vt, *(torch.from_numpy(a).to(cuda)
+                                             for a in host))
+    for routing in (host, tuple(torch.from_numpy(a).to(cuda)
+                                for a in host)):
+        got, ran = _launched(lambda: ops.race_lookup_sharded(
+            fp, vt, *routing, impl="scalar"))
+        _assert_same(got, want)
+        assert ran == {"race_lookup_scalar_byval": 4}
+    fp, vt, host = _sharded_case(cuda, 8, CAP + 40, dtype, seed=1)
+    host[2][:CAP + 20] = 0                        # shard 0 above the cap
+    host[2][-1] = 1
+    want = race_lookup_sharded_ref(fp, vt, *(torch.from_numpy(a).to(cuda)
+                                             for a in host))
+    got, ran = _launched(lambda: ops.race_lookup_sharded(fp, vt, *host,
+                                                         impl="scalar"))
+    _assert_same(got, want)
+    assert ran == {"race_lookup_scalar": 1, "race_lookup_scalar_byval": 1}
 
 
 GCAP = stage.BYVAL_CAP

@@ -93,6 +93,50 @@ def test_sharded_table_insert_and_lookup_match_jax(ns, nb):
         np.testing.assert_array_equal(v[i].numpy(), vals[k])
 
 
+@settings(max_examples=6, deadline=None)
+@given(st.integers(1, 5), st.integers(0, 10_000))
+def test_sharded_table_scalar_lookups_match_jax(ns, seed):
+    """``lookup_batch(impl="scalar")``: the host split and one scalar call
+    a shard with keys, against JAX's ``"pallas_scalar"``; a batch whose
+    keys all lie in one shard leaves the other shards without a call."""
+    rng = np.random.RandomState(seed % (2 ** 31))
+    port = ShardedDeviceRaceTable(n_shards=ns, n_buckets=29, nslot=8,
+                                  vdim=16, device="cpu")
+    jt = jrace.ShardedDeviceRaceTable(n_shards=ns, n_buckets=29, nslot=8,
+                                      vdim=16)
+    keys, vals = _load_both(rng, 40, 16, port, jt)
+    shards = np.array([port.shard_of(k) for k in keys])
+    one = [k for k, s in zip(keys, shards) if s == shards[0]]
+    for qk in (np.array(keys + [70_001, 70_002]), np.array(one)):
+        v, f = port.lookup_batch(qk, impl="scalar")
+        _equal((v, f), jt.lookup_batch(qk, impl="pallas_scalar"))
+        for i, k in enumerate(qk.tolist()):
+            if k in vals:
+                assert f[i] == 1
+                np.testing.assert_array_equal(v[i].numpy(), vals[k])
+
+
+def test_lookup_batch_hands_numpy_routing_to_the_ops(monkeypatch):
+    """Both tables keep the hashed routing on the host: the ops get numpy
+    int32 arrays (on the card, the kernels' by-value routes take them with
+    no copy)."""
+    seen = []
+
+    def spy(fp, val, *routing, impl="kernel"):
+        seen.append(routing)
+        return impl
+
+    monkeypatch.setattr(race, "race_lookup", spy)
+    monkeypatch.setattr(race, "race_lookup_sharded", spy)
+    for table in (DeviceRaceTable(31, 8, 4, device="cpu"),
+                  ShardedDeviceRaceTable(3, 31, 8, 4, device="cpu")):
+        assert table.lookup_batch(np.arange(5, 25), impl="scalar") == "scalar"
+    assert [len(r) for r in seen] == [2, 3]
+    for routing in seen:
+        assert all(isinstance(a, np.ndarray) and a.dtype == np.int32
+                   for a in routing)
+
+
 def test_from_numpy_carries_jax_state():
     rng = np.random.RandomState(4)
     jt = jrace.DeviceRaceTable(n_buckets=64, nslot=4, vdim=16)

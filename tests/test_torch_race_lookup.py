@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from repro.kernels.race_lookup import ops as jops
 from repro.kernels.race_lookup.ref import make_table as jax_make_table
 from repro.kernels.race_lookup.ref import race_lookup_ref as jax_ref
-from repro_torch.kernels.race_lookup import ops, race_lookup as kern
+from repro_torch.kernels.race_lookup import ops, race_lookup as kern, ref
 from repro_torch.kernels.race_lookup.ref import make_table
 
 #: port impl -> the JAX impl that runs the same kernel
@@ -314,8 +314,8 @@ CAP = kern.BYVAL_CAP
 def test_sharded_route_dispatch(on_host, nq):
     """Host routing up to the cap goes by value; routing on the card, or
     longer, takes the device route."""
-    route = kern.sharded_route(on_host, nq)
-    assert route in kern.SHARDED_ROUTES and route in kern._SIGNATURES
+    route = kern.route("sharded", on_host, nq)
+    assert route in kern.ROUTES["sharded"] and route in kern._SIGNATURES
     assert (route == "race_lookup_sharded_byval") == (on_host and nq <= CAP)
 
 
@@ -373,3 +373,134 @@ def test_sharded_plain_matches_jax_at_route_edges(nslot, nq):
                    jnp.asarray(vt.reshape(ns * nb, nslot, vdim)),
                    jnp.asarray(q), jnp.asarray(b + s[:, None] * nb)))
     assert 0 < int(f.sum()) < nq or nq < 8
+
+
+# -------------------------- the tiled and scalar kernels' two routes
+@pytest.mark.parametrize("kernel", ["tiled", "scalar"])
+@pytest.mark.parametrize("on_host", [True, False])
+@pytest.mark.parametrize("nq", [1, CAP - 1, CAP, CAP + 1, 4096])
+def test_route_dispatch(kernel, on_host, nq):
+    """As for the sharded kernel: host routing up to the cap goes by value,
+    routing on the card or longer takes the device route; every route has
+    its own C entry point."""
+    route = kern.route(kernel, on_host, nq)
+    assert route in kern.ROUTES[kernel] and route in kern._SIGNATURES
+    assert (route == f"race_lookup_{kernel}_byval") == (on_host and nq <= CAP)
+    assert len(set(kern._SIGNATURES)) == 6
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_pack_unsharded_routing(as_tensor):
+    """The tiled kernel's routing carries shard 0 (the sharded kernel at one
+    shard); the scalar kernel's carries each query's output row."""
+    rng = np.random.RandomState(6)
+    nq = 29
+    q = rng.randint(-2 ** 31, 2 ** 31 - 1, nq).astype(np.int32)
+    b = rng.randint(-9, 2 ** 20, (nq, 2)).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (q, b)] if as_tensor else (q, b)
+    tiled = kern.pack_routing(*args)
+    assert tiled.dtype == np.int32 and tiled.shape == (nq, 4)
+    np.testing.assert_array_equal(tiled[:, 0], q)
+    np.testing.assert_array_equal(tiled[:, 1:3], b)
+    assert not tiled[:, 3].any()
+    scalar = kern._routing(None, *args, rows=True)
+    np.testing.assert_array_equal(scalar[:, :3], tiled[:, :3])
+    np.testing.assert_array_equal(scalar[:, 3], np.arange(nq))
+    sharded = kern._routing(None, *args, np.full(nq, 2, np.int32))
+    assert (sharded[:, 3] == 2).all()
+
+
+def test_pack_unsharded_routing_refuses_other_dtypes_and_shapes():
+    q = np.zeros(4, np.int32)
+    b = np.zeros((4, 2), np.int32)
+    with pytest.raises(TypeError, match="int32"):
+        kern.pack_routing(q, b.astype(np.int64))
+    with pytest.raises(TypeError, match="int32"):
+        kern.pack_routing(q, b, np.arange(4))
+    with pytest.raises(ValueError, match="bucket_idx"):
+        kern.pack_routing(q, b[:3])
+    with pytest.raises(ValueError, match="queries"):
+        kern.pack_routing(q[:, None], b)
+    with pytest.raises(ValueError, match="all on the card or all"):
+        kern._routing(None, q, torch.zeros((4, 2), dtype=torch.int32,
+                                           device="meta"))
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.lists(st.integers(0, 40), min_size=1, max_size=6),
+       st.integers(0, 2 ** 20))
+def test_split_by_shard_keeps_jax_order(counts, seed):
+    """Shard counts from hypothesis (zeros included: shards without
+    queries): the output rows of all parts form a permutation of
+    range(NQ), each part holds one shard's queries in input order (JAX's
+    ``s == sid`` mask), and the parts come by ascending shard."""
+    rng = np.random.RandomState(seed % (2 ** 31))
+    sidx = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    rng.shuffle(sidx)
+    nq = len(sidx)
+    q = rng.randint(-2 ** 31, 2 ** 31 - 1, nq).astype(np.int32)
+    b = rng.randint(-5, 100, (nq, 2)).astype(np.int32)
+    parts = kern.split_by_shard(q, b, sidx)
+    assert [sid for sid, _ in parts] == [s for s, n in enumerate(counts)
+                                         if n]
+    rows = np.concatenate([r[:, 3] for _, r in parts]) if parts \
+        else np.zeros(0, np.int32)
+    np.testing.assert_array_equal(np.sort(rows), np.arange(nq))
+    for sid, r in parts:
+        assert r.dtype == np.int32 and r.flags.c_contiguous
+        np.testing.assert_array_equal(r[:, 3], np.flatnonzero(sidx == sid))
+        np.testing.assert_array_equal(r[:, 0], q[sidx == sid])
+        np.testing.assert_array_equal(r[:, 1:3], b[sidx == sid])
+
+
+def test_routed_plain_version_writes_the_named_rows():
+    rng = np.random.RandomState(2)
+    keys = np.arange(1, 40)
+    vals = rng.randn(len(keys), 8).astype(np.float32)
+    fp, vt, prep = make_table(16, 4, 8, keys, vals)
+    fps, bidx = prep(np.concatenate([keys[:12], [500, 501]]))
+    rows = rng.permutation(20)[:14].astype(np.int32)
+    values = torch.full((20, 8), 7.0)
+    found = torch.full((20,), 9, dtype=torch.int32)
+    ref.race_lookup_routed_ref(torch.from_numpy(fp), torch.from_numpy(vt),
+                               kern.pack_routing(fps, bidx, rows), values,
+                               found)
+    want_v, want_f = _port(fp, vt, fps, bidx, impl="ref")
+    np.testing.assert_array_equal(values[rows].numpy(), want_v)
+    np.testing.assert_array_equal(found[rows].numpy(), want_f)
+    untouched = np.setdiff1d(np.arange(20), rows)
+    assert (values[untouched] == 7.0).all() and (found[untouched] == 9).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns,nb,nslot,vdim", [(3, 64, 8, 64), (5, 16, 8, 32),
+                                              (4, 32, 16, 24)])
+def test_sharded_scalar_goes_through_the_split_like_jax(monkeypatch, dtype,
+                                                        ns, nb, nslot, vdim):
+    """``impl="scalar"`` on the CPU: the host split, then one plain call a
+    shard with queries, equal to JAX's ``"pallas_scalar"`` (its scalar
+    kernel in interpret mode, one call a shard) exactly, in float32 and
+    bf16; shard 0 gets no queries."""
+    fpt, vtt, fps, bidx, sidx, _, _ = _sharded_inputs(ns, nb, nslot, vdim)
+    calls = []
+    split = kern.split_by_shard
+
+    def spy(*a):
+        calls.append(split(*a))
+        return calls[-1]
+
+    monkeypatch.setattr(kern, "split_by_shard", spy)
+    port_vt = torch.from_numpy(vtt).to(getattr(torch, dtype))
+    jax_vt = jnp.asarray(vtt, dtype=getattr(jnp, dtype))
+    for routing in ((fps, bidx, sidx),
+                    tuple(torch.from_numpy(a) for a in (fps, bidx, sidx))):
+        v, f = ops.race_lookup_sharded(torch.from_numpy(fpt), port_vt,
+                                       *routing, impl="scalar")
+        assert v.dtype == port_vt.dtype and f.dtype == torch.int32
+        jv, jf = jops.race_lookup_sharded(fpt, jax_vt, fps, bidx, sidx,
+                                          impl="pallas_scalar")
+        np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(v.float().numpy(),
+                                      np.asarray(jv).astype(np.float32))
+    assert len(calls) == 2
+    assert [sid for sid, _ in calls[0]] == list(range(1, ns))
