@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's device paths on one CUDA card: the device
-RACE-table lookup, the serverless chain hop, and model serving (prefill and
-decode) for qwen2-0.5b and rwkv6-7b.
+RACE-table lookup, the serverless chain hop, model serving (prefill and
+decode) for qwen2-0.5b and rwkv6-7b, and the elastic KV service (dkv) with
+its device shard map; then the invocation gateway on the host.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -139,11 +140,44 @@ plain version):
     lookup kernels (sharded, which the tiled routes launch at one shard,
     and scalar) and ``chunk_gather_byval`` have a 0-byte stack frame and no
     spills.
-11. A ``{"kernels": [...]}`` line with every C entry point (its launches
-    are those of every main-path run above: lookups, chain hops, prefills
-    and the float32 consistency prefills; each entry point but ``wkv`` and
-    the device route of ``chunk_gather`` must have launched there), then
-    as the last line ``{"ok": true, "device": {...}}``.
+11. Elastic KV path (``repro_torch.dkv`` over the simulated fabric):
+    ``DkvService`` on 3 memory nodes and 4 compute nodes, 8 shards x
+    131,071 buckets x 8 slots (128 MiB of simulated store; the
+    full-suite layout of ``benchmarks/elastic_kv.py``'s bootstrap suite,
+    buckets raised to a prime) seeded with 1,000,000 keys in [1, 2**32)
+    and 8-byte values; 24 workers forked as that suite forks them, each
+    ``DkvClient.bootstrap()`` then ``get_many`` of a 512-key YCSB-C batch
+    (Zipfian 0.99), then 512 keys never loaded. The device mirror, a
+    ``ShardedDeviceRaceTable(8, 131_071, 8, vdim=8)`` on the card (one
+    float32 lane per value byte, so values are exact) holding the same
+    keys, answers the 25 batches of 512 (``race_lookup_sharded_byval``)
+    and one of 4,096, the first 8 worker batches together
+    (``race_lookup_sharded``): every ``found`` equals "the simulated get
+    returned a value", every value the 8 simulated bytes, and so does the
+    plain version. Launch counters are cleared just before the mirror's
+    lookups and read just after; gate: 25 ``race_lookup_sharded_byval``
+    and 1 ``race_lookup_sharded``. Then ``lookup_batch`` p50/p90 over 200
+    calls at 512 and 4,096 keys, each call ending in a synchronize, and
+    the three suites of ``benchmarks/elastic_kv.py`` re-implemented over
+    the port at their full-suite settings, with its gates: the KRCORE
+    attach >= 80% below verbs; 0 torn reads and 0 oracle violations with
+    at least one read during the migration; served == enqueued and the
+    spike wait-p99 >= 20% below verbs. Simulated times are the cost
+    model's microseconds, not times on any chip; the host wall times of
+    seeding, simulation and mirroring are printed beside them.
+12. Gateway (host only, launches no kernel, checked): the trace cells of
+    ``benchmarks/serverless.py`` (4 nodes, 200,000 us, 400/s; Poisson,
+    spike and diurnal traces, seeds 1-3), its closed-loop response cell (2
+    nodes, 120,000 us, 150/s, a x8 spike over 20% of the run) and the
+    worker-pull case of ``tests/test_dkv.py``; gates of its
+    ``check_gates``: no invocation dropped, invocations in the spike
+    window.
+13. A ``{"kernels": [...]}`` line with every C entry point (its launches
+    are those of every main-path run above: lookups, chain hops, prefills,
+    the float32 consistency prefills and the dkv mirror's lookups; each
+    entry point but ``wkv`` and the device route of ``chunk_gather`` must
+    have launched there), then as the last line ``{"ok": true, "device":
+    {...}}``.
 """
 
 from __future__ import annotations
@@ -156,6 +190,7 @@ import math
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -168,7 +203,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import WorkRequest, make_cluster  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    VerbsProcess, WorkRequest, make_cluster)
+from repro_torch.dkv import (  # noqa: E402
+    DkvClient, DkvService, PullQueue, WorkerPullAutoscaler, shard_key)
 from repro_torch.elastic import ExecutablePool  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -192,7 +230,8 @@ from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
     wkv_chunked_ref, wkv_sequential)
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda, wkv_route  # noqa: E402
 from repro_torch.kvs.race import (  # noqa: E402
-    DeviceRaceTable, ShardedDeviceRaceTable, query_hashes, query_shards)
+    NSLOT, SLOT_BYTES, DeviceRaceTable, RaceClient, ShardedDeviceRaceTable,
+    query_hashes, query_shards)
 from repro_torch.launch.serve import ServingWorker  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     make_decode_step, make_prefill_step)
@@ -201,8 +240,9 @@ from repro_torch.models import (  # noqa: E402
     init_params, prefill)
 from repro_torch.models.model import unembed_chunk  # noqa: E402
 from repro_torch.serverless import (  # noqa: E402
-    ChainRunner, ContainerPool, decode_slab, default_registry, encode_slab,
-    expected_outputs)
+    ChainRunner, ContainerPool, InvocationGateway, decode_slab,
+    default_registry, diurnal_trace, encode_slab, expected_outputs,
+    poisson_trace, spike_trace)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense tensor-core peak, same sheet
@@ -275,6 +315,40 @@ SERVE_STEPS = dict(decode_steps=32, worker_steps=8, seed=0)
 #: arch and the route its forward_full and prefill must launch
 CONSISTENCY = {"qwen2_0_5b": "flash_attention", "rwkv6_7b": "wkv_split"}
 CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
+#: the elastic KV path: bench_bootstrap's full-suite layout of
+#: ``benchmarks/elastic_kv.py`` (3 memory nodes, 4 compute nodes, 8 shards,
+#: 24 workers) with 131,071 buckets a shard (prime, see phase 4), 1,000,000
+#: keys, a YCSB-C batch of 512 keys a worker; then the three suites at
+#: their full-suite settings
+DKV_SIZE = dict(n_mem=3, n_compute=4, n_shards=8, n_buckets=131_071,
+                n_keys=1_000_000, n_workers=24, batch=512, big_batch=4096,
+                seed=0, calls=200,
+                bootstrap=dict(n_workers=24, n_compute=4, n_mem=3,
+                               n_shards=8, n_buckets=256),
+                migration=dict(n_reads=240, n_buckets=256), autoscaler={})
+#: the same path at a size for the CPU (the tests' rehearsal): the suites
+#: at ``benchmarks/elastic_kv.py``'s smoke settings
+DKV_SMALL = dict(n_mem=3, n_compute=4, n_shards=8, n_buckets=257,
+                 n_keys=3_000, n_workers=3, batch=64, big_batch=128, seed=0,
+                 calls=2,
+                 bootstrap=dict(n_workers=6, n_shards=4, n_buckets=64),
+                 migration=dict(n_reads=60, n_buckets=64),
+                 autoscaler=dict(duration_us=40_000.0, spike_rate=1_200.0,
+                                 work_us=1_200.0, max_workers=6))
+#: launches the dkv mirror's lookups must make on the card, exactly: the 24
+#: worker batches and the absent batch by value, the batch of 4,096 keys
+#: with its routing on the card
+DKV_LAUNCHES = {"race_lookup_sharded_byval": 25, "race_lookup_sharded": 1}
+#: the gateway cells of ``benchmarks/serverless.py``'s full suite
+GATEWAY_SIZE = dict(traces=dict(n_nodes=4, duration_us=200_000.0,
+                                rate_per_s=400.0),
+                    response=dict(n_nodes=2, duration_us=120_000.0,
+                                  base_rate=150.0, spike_mult=8.0))
+#: and at its smoke settings, for the CPU
+GATEWAY_SMALL = dict(traces=dict(n_nodes=2, duration_us=50_000.0,
+                                 rate_per_s=300.0),
+                     response=dict(n_nodes=2, duration_us=60_000.0,
+                                   base_rate=150.0))
 
 
 class PhaseError(RuntimeError):
@@ -2023,6 +2097,556 @@ def ptxas_phase() -> dict:
     return out
 
 
+# ------------------------------------------------ 11. elastic KV (dkv) path
+_VAL = struct.Struct("<II")        # seq twice: a torn read shows mixed halves
+
+
+def _enc(seq: int) -> bytes:
+    return _VAL.pack(seq & 0xFFFFFFFF, seq & 0xFFFFFFFF)
+
+
+def _dec(raw: bytes):
+    a, b = _VAL.unpack_from(raw, 0)
+    return a, a != b
+
+
+def _dkv_cluster(n_compute: int, n_mem: int):
+    cluster = make_cluster(n_nodes=n_compute + n_mem, n_meta=1)
+    return cluster, [f"n{i}" for i in range(n_compute, n_compute + n_mem)]
+
+
+def _verbs_attach(cluster, svc, home: str):
+    """Verbs-style cold-connect worker bootstrap, as
+    ``benchmarks/elastic_kv.py`` models it: driver init, RC to the meta
+    node, one sync READ per shard record, RC per memory node and a scratch
+    registration."""
+    proc = VerbsProcess(cluster.node(home))
+    yield from proc.connect(svc.meta.node)
+    mr = yield from proc.reg_mr(4096)
+    kv = svc.meta.kv
+    for sid in range(svc.n_shards):
+        slot = kv.slot_of(shard_key(svc.name, sid))
+        yield from proc.read_sync(svc.meta.node.name, mr, 0, kv.mr,
+                                  slot * 32, 32)
+    for node in {st.node.name for st in svc.stores.values()}:
+        yield from proc.connect(cluster.node(node))
+    return proc, mr
+
+
+def _verbs_get(svc, proc, mr, key: int):
+    """One lookup the verbs way: two sync bucket READs, local scan."""
+    store = svc.stores[svc.shard_of(key)]
+    off1, off2 = store.bucket_offsets(key)
+    bb = RaceClient.BUCKET_BYTES
+    yield from proc.read_sync(store.node.name, mr, 0, store.mr, off1, bb)
+    yield from proc.read_sync(store.node.name, mr, bb, store.mr, off2, bb)
+    raw = proc.node.read_bytes(mr.addr, 0, 2 * bb).tobytes()
+    return RaceClient._scan_buckets(raw, key)
+
+
+def bench_bootstrap(n_workers: int = 12, n_compute: int = 2, n_mem: int = 2,
+                    n_shards: int = 4, n_buckets: int = 128) -> dict:
+    """``benchmarks/elastic_kv.py``'s bootstrap suite through the port: a
+    spike forks ``n_workers`` workers that attach to the sharded store
+    (KRCORE: one batched directory doorbell and a connect per memory node;
+    verbs: cold connects) and serve one lookup each. Cost-model µs."""
+    out = {"n_workers": n_workers, "n_mem": n_mem, "n_shards": n_shards}
+    for kind in ("krcore", "verbs"):
+        cluster, mem = _dkv_cluster(n_compute, n_mem)
+        env = cluster.env
+        svc = DkvService(cluster, mem, n_shards=n_shards,
+                         n_buckets=n_buckets)
+        for k in range(1, 65):
+            svc.seed(k, bytes([k % 250 + 1]))
+        attach = []
+
+        def worker(i):
+            home = f"n{i % n_compute}"
+            key = 1 + i % 64
+            t0 = env.now
+            if kind == "krcore":
+                cl = DkvClient(cluster.module(home))
+                yield from cl.bootstrap()
+                attach.append(env.now - t0)
+                v = yield from cl.get(key)
+            else:
+                proc, mr = yield from _verbs_attach(cluster, svc, home)
+                attach.append(env.now - t0)
+                v = yield from _verbs_get(svc, proc, mr, key)
+            check(v == bytes([key % 250 + 1]),
+                  f"bootstrap ({kind}): key {key} read {v!r}")
+
+        def coordinator():
+            t0 = env.now
+            procs = []
+            for i in range(n_workers):
+                yield env.timeout(cluster.fabric.cm.fork_worker_us
+                                  / n_compute)
+                procs.append(env.process(worker(i), f"w{i}"))
+            for p in procs:
+                yield p
+            return env.now - t0
+
+        fleet_us = env.run_process(coordinator(), "coord")
+        a = np.array(attach)
+        out[f"{kind}_attach_mean_us"] = float(a.mean())
+        out[f"{kind}_attach_p99_us"] = float(np.percentile(a, 99))
+        out[f"{kind}_fleet_ready_us"] = float(fleet_us)
+    out["attach_reduction_vs_verbs"] = \
+        1.0 - out["krcore_attach_mean_us"] / out["verbs_attach_mean_us"]
+    return out
+
+
+def bench_migration(n_reads: int = 120, n_buckets: int = 128,
+                    read_gap_us: float = 2.0,
+                    write_gap_us: float = 5.0) -> dict:
+    """``benchmarks/elastic_kv.py``'s migration suite through the port:
+    fenced lookups and a concurrent writer across one live shard migration,
+    held against the sequential oracle. Cost-model µs."""
+    cluster, mem = _dkv_cluster(2, 2)
+    env = cluster.env
+    svc = DkvService(cluster, mem[:1], n_shards=2, n_buckets=n_buckets)
+    key = 7
+    sid = svc.shard_of(key)
+    for k in range(1, 33):
+        svc.seed(k, _enc(0))
+    puts, reads = [], []
+    state = {"stop": False, "mig": None, "win": (0.0, 0.0)}
+
+    def writer():
+        cl = DkvClient(cluster.module("n1"))
+        yield from cl.bootstrap()
+        seq = 0
+        while not state["stop"]:
+            seq += 1
+            t0 = env.now
+            yield from cl.put(key, _enc(seq))
+            puts.append((t0, env.now, seq))
+            yield env.timeout(write_gap_us)
+
+    def mover():
+        while len(reads) < n_reads // 3:
+            yield env.timeout(5.0)
+        t0 = env.now
+        state["mig"] = yield from svc.migrate(cluster.module("n1"), sid,
+                                              mem[1])
+        state["win"] = (t0, env.now)
+
+    def reader():
+        cl = DkvClient(cluster.module("n0"))
+        yield from cl.bootstrap()
+        mig = env.process(mover(), "mover")
+        for _ in range(n_reads):
+            t0 = env.now
+            seq, torn = _dec((yield from cl.get(key)))
+            reads.append((t0, env.now, seq, torn))
+            yield env.timeout(read_gap_us)
+        state["stop"] = True
+        yield mig
+        return cl.stat_redirects
+
+    def scenario():
+        wp = env.process(writer(), "writer")
+        redirects = yield from reader()
+        yield wp
+        return redirects
+
+    redirects = env.run_process(scenario(), "mig-bench")
+    lo, hi = state["win"]
+    bad = 0
+    for t0, t1, seq, _torn in reads:
+        floor = max([s for (_i, pr, s) in puts if pr <= t0], default=0)
+        ceil = max([s for (pi, _r, s) in puts if pi <= t1], default=0)
+        bad += not floor <= seq <= ceil
+    during = [t1 - t0 for t0, t1, _s, _t in reads if t1 >= lo and t0 <= hi]
+    rep = state["mig"]
+    return {"n_reads": len(reads), "n_puts": len(puts),
+            "torn_reads": sum(1 for r in reads if r[3]),
+            "oracle_violations": bad,
+            "reads_during_migration": len(during),
+            "client_redirects": redirects,
+            "p99_during_us": float(np.percentile(during, 99))
+            if during else None,
+            "migration": None if rep is None else dataclasses.asdict(rep)}
+
+
+def bench_autoscaler(duration_us: float = 60_000.0, base_rate: float = 120.0,
+                     spike_rate: float = 1_500.0, work_us: float = 1_500.0,
+                     n_shards: int = 2, max_workers: int = 8) -> dict:
+    """``benchmarks/elastic_kv.py``'s autoscaler suite through the port: a
+    spike trace into per-shard pull queues, the worker-pull scaler paying
+    each worker's real bootstrap (KRCORE or verbs). Cost-model µs."""
+    spike_start, spike_len = duration_us * 0.3, duration_us * 0.25
+    out = {"work_us": work_us, "n_shards": n_shards}
+    for kind in ("krcore", "verbs"):
+        cluster, mem = _dkv_cluster(3, 2)
+        env = cluster.env
+        svc = DkvService(cluster, mem, n_shards=n_shards, n_buckets=128)
+        for k in range(1, 65):
+            svc.seed(k, bytes([k % 250 + 1]))
+        arrivals = spike_trace(base_rate, spike_rate, duration_us,
+                               spike_start, spike_len, seed=11)
+        keys = 1 + np.random.RandomState(5).randint(0, 64,
+                                                    size=len(arrivals))
+        queues = [PullQueue(env, f"shard{s}") for s in range(n_shards)]
+        homes = itertools.cycle([f"n{i}" for i in range(3)])
+
+        def spawn(queue):
+            home = next(homes)
+            yield env.timeout(cluster.fabric.cm.fork_worker_us)
+            if kind == "krcore":
+                cl = DkvClient(cluster.module(home))
+                yield from cl.bootstrap()
+
+                def get(key):
+                    return (yield from cl.get(key))
+            else:
+                proc, mr = yield from _verbs_attach(cluster, svc, home)
+
+                def get(key):
+                    return (yield from _verbs_get(svc, proc, mr, key))
+
+            def serve(key):
+                v = yield from get(int(key))
+                check(v is not None, f"autoscaler ({kind}): key {key} lost")
+                yield env.timeout(work_us)
+            return serve
+
+        scaler = WorkerPullAutoscaler(
+            env, queues, spawn, min_workers=1, max_workers=max_workers,
+            target_pressure=2, check_period_us=1_000.0).start()
+
+        def admit():
+            base = env.now
+            for t, key in zip(arrivals, keys):
+                if base + float(t) > env.now:
+                    yield env.timeout(base + float(t) - env.now)
+                queues[svc.shard_of(int(key))].put(int(key))
+            last = env.now
+            while not all(q.done for q in queues):
+                yield env.timeout(500.0)
+            scaler.stop()
+            scaler.stop_workers()
+            return env.now - last
+
+        drain = env.run_process(admit(), f"autoscale.{kind}")
+        s = scaler.summary()
+        for field in ("served", "enqueued", "workers_peak", "spawns",
+                      "wait_p99_us"):
+            out[f"{kind}_{field}"] = s[field]
+        out[f"{kind}_drain_lag_us"] = float(drain)
+    out["arrivals"] = int(len(arrivals))
+    out["wait_p99_reduction_vs_verbs"] = 1.0 - out["krcore_wait_p99_us"] \
+        / max(out["verbs_wait_p99_us"], 1e-9)
+    return out
+
+
+def elastic_gates(bootstrap: dict, migration: dict,
+                  autoscaler: dict) -> list:
+    """``check_gates`` of ``benchmarks/elastic_kv.py``."""
+    bad = []
+    if bootstrap["attach_reduction_vs_verbs"] < 0.80:
+        bad.append(f"bootstrap attach reduction below 80%: {bootstrap}")
+    if migration["torn_reads"] or migration["oracle_violations"]:
+        bad.append(f"torn or non-linearizable reads: {migration}")
+    if migration["reads_during_migration"] < 1 \
+            or migration["migration"] is None:
+        bad.append(f"no lookup overlapped the migration: {migration}")
+    for kind in ("krcore", "verbs"):
+        if autoscaler[f"{kind}_served"] != autoscaler[f"{kind}_enqueued"]:
+            bad.append(f"autoscaler ({kind}) dropped requests: {autoscaler}")
+    if autoscaler["wait_p99_reduction_vs_verbs"] < 0.2:
+        bad.append(f"spike wait-p99 reduction below 20%: {autoscaler}")
+    return bad
+
+
+def dkv_workload(seed: int, n_keys: int, n_workers: int, batch: int,
+                 theta: float = 0.99) -> dict:
+    """``n_keys`` distinct keys in [1, 2**32) with 8-byte values, one YCSB-C
+    batch of ``batch`` keys a worker (Zipfian ``theta`` over the loaded
+    keys, ranks on a seeded shuffle) and one batch never loaded."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(1, 2 ** 32, int(n_keys * 1.1) + 16,
+                                  dtype=np.int64))
+    keys = rng.permutation(keys)[:n_keys]
+    check(len(keys) == n_keys, "not enough distinct keys drawn")
+    values = rng.integers(0, 256, (n_keys, 8), dtype=np.uint8)
+    cdf = np.cumsum(1.0 / np.arange(1, n_keys + 1) ** theta)
+    cdf /= cdf[-1]
+    reads = [np.minimum(np.searchsorted(cdf, rng.random(batch)), n_keys - 1)
+             for _ in range(n_workers)]
+    absent = rng.integers(1, 2 ** 32, 2 * batch, dtype=np.int64)
+    absent = absent[~np.isin(absent, keys)][:batch]
+    return dict(keys=keys, values=values, reads=reads, absent=absent)
+
+
+def _sim_fleet(cluster, svc, wl, n_compute: int) -> dict:
+    """``bench_bootstrap``'s fork schedule at the service's size: each
+    worker bootstraps, then ``get_many`` of its batch; then worker 0 reads
+    the batch that was never loaded. Cost-model µs."""
+    env = cluster.env
+    attach, get_us, got, clients = {}, {}, {}, {}
+    n_workers = len(wl["reads"])
+
+    def worker(i):
+        cl = clients[i] = DkvClient(cluster.module(f"n{i % n_compute}"))
+        t0 = env.now
+        yield from cl.bootstrap()
+        attach[i] = env.now - t0
+        t0 = env.now
+        got[i] = yield from cl.get_many(wl["keys"][wl["reads"][i]].tolist())
+        get_us[i] = env.now - t0
+
+    def coordinator():
+        t0 = env.now
+        procs = []
+        for i in range(n_workers):
+            yield env.timeout(cluster.fabric.cm.fork_worker_us / n_compute)
+            procs.append(env.process(worker(i), f"w{i}"))
+        for p in procs:
+            yield p
+        fleet = env.now - t0
+        absent = yield from clients[0].get_many(wl["absent"].tolist())
+        return fleet, absent
+
+    fleet_us, absent = env.run_process(coordinator(), "dkv-fleet")
+    a = np.array([attach[i] for i in range(n_workers)])
+    g = np.array([get_us[i] for i in range(n_workers)])
+    return dict(got=[got[i] for i in range(n_workers)], absent=absent,
+                attach_mean_us=float(a.mean()),
+                attach_p99_us=float(np.percentile(a, 99)),
+                get_many_mean_us=float(g.mean()),
+                get_us_per_key=float(g.mean() / len(wl["reads"][0])),
+                fleet_ready_us=float(fleet_us),
+                redirects=sum(c.stat_redirects for c in clients.values()),
+                dir_misses=sum(c.dir.cache.misses for c in clients.values()),
+                sim_end_us=float(env.now))
+
+
+def _check_mirror(got, sim, what: str) -> None:
+    """A device lookup == the simulated gets of the same keys: ``found``
+    where a get returned a value, and that value's 8 bytes, one lane each
+    (rows that were not found are zero)."""
+    v, f = (t.cpu().numpy() for t in got)
+    want_f = np.array([s is not None for s in sim], np.int32)
+    check(np.array_equal(f, want_f),
+          f"{what}: found {int(f.sum())} keys, the simulated gets "
+          f"{int(want_f.sum())}")
+    want_v = np.zeros(v.shape, np.float32)
+    for j, s in enumerate(sim):
+        if s is not None:
+            want_v[j, :len(s)] = np.frombuffer(s, np.uint8)
+    check(np.array_equal(v, want_v),
+          f"{what}: values differ from the simulated gets")
+
+
+def dkv_phase(device, *, n_mem, n_compute, n_shards, n_buckets, n_keys,
+              n_workers, batch, big_batch, seed, calls, bootstrap, migration,
+              autoscaler) -> dict:
+    """The elastic KV service through the port (see the module docstring):
+    the simulated service at ``n_shards`` x ``n_buckets`` x 8 slots, a fork
+    of ``n_workers`` bootstrapping workers with a YCSB-C batch each, the
+    device mirror (``ShardedDeviceRaceTable``) held against every simulated
+    get, and the three elastic-KV suites with their gates. Returns the
+    mirror's launches (counted from zero just before its lookups and read
+    just after) and every measurement."""
+    device = torch.device(device)
+    wl = dkv_workload(seed, n_keys, n_workers, batch)
+    t0 = time.perf_counter()
+    cluster, mem = _dkv_cluster(n_compute, n_mem)
+    svc = DkvService(cluster, mem, n_shards=n_shards, n_buckets=n_buckets)
+    for k, v in zip(wl["keys"].tolist(), wl["values"]):
+        svc.seed(k, v.tobytes())
+    seed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = _sim_fleet(cluster, svc, wl, n_compute)
+    sim_s = time.perf_counter() - t0
+    found = sum(s is not None for got in sim["got"] for s in got)
+    absent_found = sum(s is not None for s in sim["absent"])
+    check(found == n_workers * batch and absent_found == 0,
+          f"dkv: {found} of {n_workers * batch} loaded keys and "
+          f"{absent_found} absent keys found by the simulated gets")
+    mib = n_shards * n_buckets * NSLOT * SLOT_BYTES / 2 ** 20
+    print(f"dkv service: {n_mem} memory nodes, {n_compute} compute nodes, "
+          f"{n_shards} shards x {n_buckets} buckets x {NSLOT} slots "
+          f"({mib:.1f} MiB simulated), {n_keys} keys seeded in "
+          f"{seed_s:.2f} s of host time; {n_workers} workers x get_many of "
+          f"{batch} keys (YCSB-C, Zipfian 0.99) simulated in {sim_s:.2f} s "
+          f"of host time")
+    print("dkv simulated fields (cost-model us from the paper's constants, "
+          "not times on any chip): " + json.dumps(
+              {k: v for k, v in sim.items() if k not in ("got", "absent")}))
+
+    t0 = time.perf_counter()
+    table = ShardedDeviceRaceTable(n_shards, n_buckets, NSLOT, vdim=8,
+                                   device=device)
+    for k, v in zip(wl["keys"].tolist(), wl["values"].astype(np.float32)):
+        table.insert(k, v)
+    table.sync()
+    _sync(device)
+    mirror_s = time.perf_counter() - t0
+    mirror_mb = (table.val_table.numel() + table.fp_table.numel()) * 4 / 1e6
+    per_big = big_batch // batch
+    check(big_batch % batch == 0 and per_big <= n_workers,
+          f"dkv: a batch of {big_batch} must be whole worker batches")
+    lookups = [(wl["keys"][idx], got, f"worker {i}")
+               for i, (idx, got) in enumerate(zip(wl["reads"], sim["got"]))]
+    lookups.append((wl["absent"], sim["absent"], "absent batch"))
+    lookups.append((np.concatenate([wl["keys"][i]
+                                    for i in wl["reads"][:per_big]]),
+                    [s for got in sim["got"][:per_big] for s in got],
+                    f"batch of {big_batch}"))
+    _build.launches.clear()
+    for keys, want, what in lookups:
+        got = table.lookup_batch(keys)
+        _check_mirror(got, want, f"dkv mirror, {what}")
+    _sync(device)
+    launches = dict(_build.launches)
+    _build.launches.clear()
+    for keys, want, what in lookups:
+        _check_mirror(table.lookup_batch(keys, impl="ref"), want,
+                      f"dkv mirror (plain version), {what}")
+    _build.launches.clear()
+
+    def timed(keys):
+        def call():
+            table.lookup_batch(keys)
+            _sync(device)
+        return _p50_p90(call, calls)
+
+    host = {str(len(k)): timed(k) for k, _w, _x in (lookups[0], lookups[-1])}
+    _build.launches.clear()
+    print(f"dkv device mirror ShardedDeviceRaceTable({n_shards}, "
+          f"{n_buckets}, {NSLOT}, vdim=8) on {device} ({mirror_mb:.1f} MB): "
+          f"{n_keys} keys inserted in {mirror_s:.2f} s of host time; "
+          f"{len(lookups)} lookup_batch calls equal every simulated get; "
+          f"launches {launches}; lookup_batch p50/p90 ms over {calls} calls "
+          f"(each ending in a synchronize) by batch: {host}")
+    del table
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    suites = dict(bootstrap=bench_bootstrap(**bootstrap),
+                  migration=bench_migration(**migration),
+                  autoscaler=bench_autoscaler(**autoscaler))
+    print("dkv suites (cost-model us): " + json.dumps(suites))
+    bad = elastic_gates(**suites)
+    check(not bad, "; ".join(bad))
+    return dict(launches=launches, lookups=len(lookups), host_ms=host,
+                seed_s=seed_s, sim_s=sim_s, mirror_s=mirror_s,
+                mirror_mb=mirror_mb,
+                sim=dict({k: v for k, v in sim.items()
+                          if k not in ("got", "absent")},
+                         found=found, absent_found=absent_found),
+                **suites)
+
+
+# ----------------------------------------------------- 12. gateway (host)
+def bench_traces(n_nodes: int = 4, duration_us: float = 200_000.0,
+                 rate_per_s: float = 400.0) -> list:
+    """``benchmarks/serverless.py``'s trace cells through the port: the
+    gateway under Poisson, spike and diurnal open-loop traces."""
+    shapes = {
+        "poisson": poisson_trace(rate_per_s, duration_us, seed=1),
+        "spike": spike_trace(rate_per_s / 4, rate_per_s * 4, duration_us,
+                             duration_us * 0.4, duration_us * 0.2, seed=2),
+        "diurnal": diurnal_trace(rate_per_s, duration_us,
+                                 period_us=duration_us / 2, seed=3),
+    }
+    rows = []
+    for shape, arrivals in shapes.items():
+        cluster = make_cluster(n_nodes=n_nodes + 1, n_meta=1)
+        pool = ContainerPool(cluster, "krcore", warm_target=4,
+                             prewarm_threshold=2)
+        gw = InvocationGateway(cluster, default_registry(payload_bytes=1024),
+                               pool, worker_nodes=[f"n{i}" for i in
+                                                   range(n_nodes)],
+                               data_node=f"n{n_nodes}")
+        cluster.env.run_process(gw.submit_trace("extract", arrivals,
+                                                payload_bytes=1024),
+                                f"trace.{shape}")
+        rows.append(dict(gw.summary(), shape=shape, arrivals=len(arrivals)))
+    return rows
+
+
+def bench_response(n_nodes: int = 2, duration_us: float = 120_000.0,
+                   base_rate: float = 150.0, spike_mult: float = 8.0,
+                   payload_bytes: int = 1024) -> dict:
+    """``benchmarks/serverless.py``'s closed-loop cell through the port:
+    every output returns to the caller over ``session.call``; tails inside
+    the spike window and off-peak."""
+    spike_start, spike_len = duration_us * 0.4, duration_us * 0.2
+    arrivals = spike_trace(base_rate, base_rate * spike_mult, duration_us,
+                           spike_start, spike_len, seed=14)
+    cluster = make_cluster(n_nodes=n_nodes + 2, n_meta=1)
+    pool = ContainerPool(cluster, "krcore", warm_target=4,
+                         prewarm_threshold=2)
+    gw = InvocationGateway(cluster,
+                           default_registry(payload_bytes=payload_bytes),
+                           pool, worker_nodes=[f"n{i}" for i in
+                                               range(n_nodes)],
+                           data_node=f"n{n_nodes}",
+                           caller_node=f"n{n_nodes + 1}")
+    cluster.env.run_process(gw.submit_trace("extract", arrivals,
+                                            payload_bytes=payload_bytes),
+                            "response")
+    base = gw.last_trace_base
+    return dict(gw.summary(), arrivals=len(arrivals),
+                spike_window=gw.window_summary(
+                    base + spike_start, base + spike_start + spike_len),
+                offpeak=gw.window_summary(base, base + spike_start))
+
+
+def bench_pull() -> dict:
+    """The worker-pull gateway case of ``tests/test_dkv.py``: 12 arrivals
+    400 us apart into a pull queue, up to 4 pull workers."""
+    cluster = make_cluster(n_nodes=3, n_meta=1)
+    gw = InvocationGateway(cluster, default_registry(payload_bytes=256),
+                           ContainerPool(cluster, "krcore"),
+                           worker_nodes=["n0", "n1"], data_node="n2")
+    recs = cluster.env.run_process(gw.submit_trace_pull(
+        "extract", [i * 400.0 for i in range(12)], payload_bytes=256,
+        max_workers=4, check_period_us=500.0), "pull")
+    s = gw.last_autoscaler.summary()
+    return dict(n=len(recs), served=s["served"],
+                workers_peak=s["workers_peak"], wait_p99_us=s["wait_p99_us"],
+                ordered=all(r.end_us >= r.start_us >= r.arrival_us
+                            for r in recs))
+
+
+def gateway_gates(res: dict) -> list:
+    """``check_gates`` of ``benchmarks/serverless.py`` for these cells: no
+    dropped invocation, and invocations in the spike window."""
+    bad = [f"trace dropped invocations: {row}" for row in res["traces"]
+           if row["n"] != row["arrivals"]]
+    resp = res["response"]
+    if resp["n"] != resp["arrivals"]:
+        bad.append(f"closed loop dropped invocations: {resp}")
+    if resp["spike_window"].get("n", 0) == 0:
+        bad.append(f"no invocations landed in the spike window: {resp}")
+    pull = res["pull"]
+    if not pull["n"] == pull["served"] == 12 or not pull["ordered"]:
+        bad.append(f"worker-pull gateway: {pull}")
+    return bad
+
+
+def gateway_phase(traces: dict, response: dict) -> dict:
+    """The gateway cells through the port, on the host only: the gateway
+    moves no slab, so this phase launches no kernel (checked)."""
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    res = dict(traces=bench_traces(**traces),
+               response=bench_response(**response), pull=bench_pull())
+    wall = time.perf_counter() - t0
+    check(not _build.launches,
+          f"the gateway phase launched {dict(_build.launches)}")
+    print(f"gateway phase (host only; launches no kernel) in {wall:.2f} s "
+          f"of host time; cost-model us: " + json.dumps(res))
+    bad = gateway_gates(res)
+    check(not bad, "; ".join(bad))
+    return res
+
+
 # ------------------------------------------------------------------- main
 #: launches each main-path run must make, exactly (see the module docstring)
 LOOKUP_LAUNCHES = {
@@ -2080,6 +2704,10 @@ def main() -> int:
                   for arch, route in CONSISTENCY.items()]
     model_times = measure_model_kernels(device)
     ptxas = ptxas_phase()
+    dkv = dkv_phase(device, **DKV_SIZE)
+    check(dkv["launches"] == DKV_LAUNCHES,
+          f"dkv launches {dkv['launches']}, expected {DKV_LAUNCHES}")
+    gateway_phase(**GATEWAY_SIZE)
     torch.cuda.synchronize(device)
     # the tiled and scalar routes against the sharded ones, the in-run
     # control, at each batch (the same bytes a lookup); the scalar kernel's
@@ -2117,10 +2745,11 @@ def main() -> int:
           f"device spans, expected {SCALAR_SPANS} (a kernel a shard): "
           f"{measured['race_lookup_scalar_byval'][top]}")
     # launches of every main-path run, each counted from zero just before
-    # it and read just after: lookups, chain hops, the serving prefills and
-    # the float32 consistency prefills
+    # it and read just after: lookups, chain hops, the serving prefills,
+    # the float32 consistency prefills and the dkv mirror's lookups
     launches = collections.Counter(res["launches"])
     launches.update(chain["launches"])
+    launches.update(dkv["launches"])
     for row in serving.values():
         launches.update(row["prefill_launches"])
     for row in consistent:
@@ -2173,6 +2802,9 @@ def main() -> int:
                                    measured[name].items()},
                          lookup_batch_host_in_turns_ms={
                              str(s): v for s, v in res["compared"].items()})
+            if name in dkv["launches"]:
+                extra.update(dkv_launches=dkv["launches"][name],
+                             dkv_lookup_batch_host_ms=dkv["host_ms"])
         if name in ptxas:
             extra["ptxas"] = ptxas[name]
         kernels.append(dict(

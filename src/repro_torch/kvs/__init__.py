@@ -1,7 +1,9 @@
-from .race import (NSLOT, STATE_FROZEN, STATE_MOVED, STATE_OFF, STATE_SERVING,
-                   DeviceRaceTable, ShardedDeviceRaceTable, parse_state,
-                   shard_of_key, state_word)
+from .race import (CLAIMED, NSLOT, SLOT_BYTES, STATE_FROZEN, STATE_MOVED,
+                   STATE_OFF, STATE_SERVING, DeviceRaceTable, RaceClient,
+                   RaceKVStore, ShardClient, ShardedDeviceRaceTable,
+                   parse_state, shard_of_key, state_word)
 
-__all__ = ["NSLOT", "STATE_FROZEN", "STATE_MOVED", "STATE_OFF",
-           "STATE_SERVING", "DeviceRaceTable", "ShardedDeviceRaceTable",
+__all__ = ["CLAIMED", "NSLOT", "SLOT_BYTES", "STATE_FROZEN", "STATE_MOVED",
+           "STATE_OFF", "STATE_SERVING", "DeviceRaceTable", "RaceClient",
+           "RaceKVStore", "ShardClient", "ShardedDeviceRaceTable",
            "parse_state", "shard_of_key", "state_word"]

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import make_cluster
+from repro_torch.dkv import DkvClient, DkvService
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
@@ -944,3 +945,46 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_sharded_table_routes_equal_simulated_dkv_gets(cuda):
+    """The device shard map against the elastic KV service: a seeded
+    ``DkvService`` (4 shards x 1,021 buckets) and a ``ShardedDeviceRaceTable``
+    on the card hold the same keys; both kernel routes (by value at 512
+    keys, routing on the card at 2,800) find exactly what the simulated
+    ``DkvClient`` gets return, with their 8 bytes."""
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(1, 2 ** 32, 6_000, dtype=np.int64))
+    values = rng.integers(0, 256, (len(keys), 8), dtype=np.uint8)
+    cluster = make_cluster(n_nodes=5, n_meta=1)
+    svc = DkvService(cluster, ["n3", "n4"], n_shards=4, n_buckets=1021)
+    table = ShardedDeviceRaceTable(4, 1021, 8, vdim=8, device=cuda)
+    for k, v in zip(keys.tolist(), values):
+        svc.seed(k, v.tobytes())
+        table.insert(k, v.astype(np.float32))
+    absent = rng.integers(1, 2 ** 32, 400, dtype=np.int64)
+    absent = absent[~np.isin(absent, keys)][:300]
+    queries = rng.permutation(np.concatenate([rng.choice(keys, 2_500),
+                                              absent]))
+
+    def scenario():
+        cl = DkvClient(cluster.module("n0"))
+        yield from cl.bootstrap()
+        return (yield from cl.get_many(queries.tolist()))
+
+    sim = cluster.env.run_process(scenario(), "gets")
+    want_f = np.array([s is not None for s in sim], np.int32)
+    want_v = np.zeros((len(sim), 8), np.float32)
+    for j, s in enumerate(sim):
+        if s is not None:
+            want_v[j] = np.frombuffer(s, np.uint8)
+    assert want_f.sum() == 2_500
+    _build.launches.clear()
+    small = table.lookup_batch(queries[:512])
+    full = table.lookup_batch(queries)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"race_lookup_sharded_byval": 1,
+                                     "race_lookup_sharded": 1}
+    for (v, f), n in ((small, 512), (full, len(queries))):
+        np.testing.assert_array_equal(f.cpu().numpy(), want_f[:n])
+        np.testing.assert_array_equal(v.cpu().numpy(), want_v[:n])

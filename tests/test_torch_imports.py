@@ -29,6 +29,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.kernels.race_lookup.ops\n"
             "import repro_torch.kernels.race_lookup.race_lookup\n"
             "import repro_torch.core, repro_torch.serverless\n"
+            "import repro_torch.dkv, repro_torch.serverless.gateway\n"
+            "import repro_torch.serverless.traces\n"
+            "from repro_torch.kvs import RaceClient, RaceKVStore, ShardClient\n"
             "import repro_torch.kernels.serverless_stage.ops\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.rwkv6.ops\n"
