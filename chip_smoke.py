@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's device paths on one CUDA card: the device
 RACE-table lookup, the serverless chain hop, model serving (prefill and
-decode) for qwen2-0.5b and rwkv6-7b, and the elastic KV service (dkv) with
-its device shard map; then the invocation gateway on the host.
+decode) for qwen2-0.5b, rwkv6-7b, olmoe-1b-7b, deepseek-v2-236b (4 of its
+60 layers), zamba2-1.2b and seamless-m4t-medium, and the elastic KV service
+(dkv) with its device shard map; then the invocation gateway on the host.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -40,7 +41,12 @@ plain version):
    the block-shape case, qwen2's prefill shape (8, 14, 512, 64) in bf16
    and float32, ragged S = 200 and 544, D = 96 and 256 with window 512 and
    cap 50 in bf16, and
-   ``kv_len`` cases, at 2e-5 (float32) / 2e-2 (bf16); the cases at the
+   ``kv_len`` cases; the new families' shapes: olmoe's prefill (4, 16,
+   512, 128) bf16, deepseek-v2's MLA (1, 128, 512, 192) bf16 with v's
+   columns 128-191 zero (those output columns must be exactly 0, on the
+   CUDA-core route), seamless's cross-attention (4, 16, 512, 64) against
+   Skv 512 and a ragged 1,000, non-causal, in bf16 and float32; all at
+   2e-5 (float32) / 2e-2 (bf16); the cases at the
    models' shapes draw inputs large enough that each tolerance lies below
    the output's mean magnitude, which the phase checks; and the result is
    the same bit for bit whatever ``bq``/``bk`` (float32 and bf16).
@@ -111,27 +117,42 @@ plain version):
    ``torch.profiler``. Gate: that K = 64 x 1 KiB epoch shows 48 device
    spans (16 gathers, each one copy of the source, the kernel, one copy
    back).
-8. Serving path at full width, bf16 (the configs' dtype): qwen2-0.5b, then
-   rwkv6-7b, parameters drawn on the card from the seed.
-   ``make_prefill_step`` on 8 x 512 (qwen2, max_len 1024) / 4 x 512
-   (rwkv6) prompt tokens, 32 greedy ``make_decode_step`` steps from that
-   cache, then two ``ServingWorker`` replicas on one ``ExecutablePool``
-   (a cold start, then a pool hit). Logits finite, tokens in [0, vocab),
-   cache shapes and dtypes JAX's; launches exactly 24
-   ``flash_attention_mma`` per qwen2 prefill and 32 ``wkv_split`` per
-   rwkv6 prefill, none in decode.
-   Then prefill ms and tokens/s, decode ms per step, both bootstraps and
-   the card's idle share over a prefill (``torch.profiler``).
+8. Serving path at full width, bf16 (the configs' dtype), one model at a
+   time (each freed before the next): qwen2-0.5b, rwkv6-7b, olmoe-1b-7b,
+   deepseek-v2-236b, zamba2-1.2b, seamless-m4t-medium, parameters drawn on
+   the card from the seed; full depth but for deepseek-v2, which runs its
+   dense first layer and 3 MoE layers (~26 GB; all 60 need ~470 GB, four
+   cards and the sharding plans), printed as ``reduced``.
+   ``make_prefill_step`` on 8 x 512 (qwen2) / 4 x 512 (the others) prompt
+   tokens (seamless: 512 frames and 512 decoder tokens), max_len 1024, 32
+   greedy ``make_decode_step`` steps from that cache, then two
+   ``ServingWorker`` replicas on one ``ExecutablePool`` (a cold start,
+   then a pool hit). Logits finite, tokens in [0, vocab), cache trees,
+   shapes and dtypes JAX's; a prefill launches exactly 24 (qwen2), 16
+   (olmoe), 6 (zamba2's shared block) and 36 (seamless: 12 encoder, 12
+   decoder, 12 cross) ``flash_attention_mma``, 4 ``flash_attention``
+   (deepseek's MLA at D = 192) and 32 ``wkv_split`` (rwkv6); none in
+   decode. Then prefill ms and tokens/s, decode ms per step, both
+   bootstraps, the card's idle share over a prefill (``torch.profiler``)
+   and the peak allocated memory.
 9. Prefill -> decode consistency at full width in float32 (the port of
-   ``tests/test_models.py:86``): b = 1, s = 544, cut = 512, atol = rtol =
-   1e-3; ``forward_full`` and ``prefill`` run the kernels (qwen2 on the
-   float32 ``flash_attention`` route, rwkv6 on ``wkv_split``),
-   ``decode_step`` the plain recurrence, so a wrong kernel shows as a
-   mismatch.
+   ``tests/test_models.py:86``, with its settings: MoE at a capacity
+   factor of 1000): b = 1, s = 544, cut = 512 (zamba2: s = 576, its chunks
+   being 64 tokens), atol = rtol = 1e-3, every model of phase 8 at full
+   depth but deepseek-v2 (its dense layer and one MoE layer, ~21 GB);
+   ``forward_full`` and ``prefill`` run the kernels (the float32
+   ``flash_attention`` route, rwkv6's ``wkv_split``), ``decode_step`` the
+   plain recurrences, so a wrong kernel shows as a mismatch. For MoE every
+   routing decision of the prefill and of each decode step is compared
+   with the teacher-forced pass's; the number that differ is printed with
+   each one's margin, and one beyond a near-tie (1e-4) fails.
 10. Model kernel times, each entry point at the shape its main-path run
     gives it: device time per launch, its ratio to its bound and to
     ``scaled_dot_product_attention`` (flash; WKV has no library call), the
-    plain version's time. The one-CTA-a-head ``wkv`` route is on no
+    plain version's time; then both flash routes at the new families'
+    prefill shapes (olmoe, deepseek-v2's MLA, zamba2's shared block,
+    seamless's encoder / cross and decoder attention) beside SDPA in
+    turns. The one-CTA-a-head ``wkv`` route is on no
     main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
     timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
     tokens it would scan, and held there on ``o`` and the final state.
@@ -304,17 +325,42 @@ CHAIN = ("extract", "transform", "load")
 #: and a ragged epoch up to the largest payload its transfer suite measures
 CHAIN_SIZE = dict(ks=(8, 32, 64), payload_bytes=1024, slab_payloads=16,
                   ragged_k=64, ragged_max_bytes=64 * 1024, seed=0)
-#: the serving path: each published model at full width and depth, bf16
-#: and the route each prefill must launch once a layer
+#: the serving path: each published model at full width, bf16, and the
+#: route each prefill must launch once an attention call (``attn_calls``);
+#: full depth but for deepseek-v2, whose 60 layers (~470 GB of bf16
+#: weights) do not fit one card: it runs its dense first layer and 3 MoE
+#: layers (~26 GB), a cut the phase prints as ``reduced``
 SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024,
                    route="flash_attention_mma"),
               dict(arch="rwkv6_7b", batch=4, prompt=512, max_len=1024,
-                   route="wkv_split"))
+                   route="wkv_split"),
+              dict(arch="olmoe_1b_7b", batch=4, prompt=512, max_len=1024,
+                   route="flash_attention_mma"),
+              dict(arch="deepseek_v2_236b", batch=4, prompt=512,
+                   max_len=1024, route="flash_attention", n_layers=4),
+              dict(arch="zamba2_1_2b", batch=4, prompt=512, max_len=1024,
+                   route="flash_attention_mma"),
+              dict(arch="seamless_m4t_medium", batch=4, prompt=512,
+                   max_len=1024, route="flash_attention_mma"))
 SERVE_STEPS = dict(decode_steps=32, worker_steps=8, seed=0)
-#: prefill->decode consistency in float32, at full width and depth: each
-#: arch and the route its forward_full and prefill must launch
-CONSISTENCY = {"qwen2_0_5b": "flash_attention", "rwkv6_7b": "wkv_split"}
+#: prefill->decode consistency in float32, at full width: each arch, the
+#: route its forward_full and prefill must launch, and its lengths; full
+#: depth but for deepseek-v2 (its dense layer and one MoE layer, ~21 GB in
+#: float32); zamba2's ``ssd_chunked`` scans whole 64-token chunks, so its
+#: lengths are multiples of 64
+CONSISTENCY = {
+    "qwen2_0_5b": dict(route="flash_attention"),
+    "rwkv6_7b": dict(route="wkv_split"),
+    "olmoe_1b_7b": dict(route="flash_attention"),
+    "deepseek_v2_236b": dict(route="flash_attention", n_layers=2),
+    "zamba2_1_2b": dict(route="flash_attention", s=576, cut=512),
+    "seamless_m4t_medium": dict(route="flash_attention"),
+}
 CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
+#: a routing decision that differs between the teacher-forced pass and
+#: decode is a fault unless the probabilities of the k-th and the
+#: (k+1)-th expert lie closer than this (float32 rounding of the logits)
+ROUTING_TIE = 1e-4
 #: the elastic KV path: bench_bootstrap's full-suite layout of
 #: ``benchmarks/elastic_kv.py`` (3 memory nodes, 4 compute nodes, 8 shards,
 #: 24 workers) with 131,071 buckets a shard (prime, see phase 4), 1,000,000
@@ -1431,8 +1477,8 @@ KERNEL_SYMBOLS = {"flash_attention_mma": "flash_mma_kernel",
                   "flash_attention": "flash_kernel",
                   "wkv_split": "wkv_split_kernel", "wkv": "wkv_kernel"}
 #: (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len, dtype,
-#: scale of q/k/v). The sweep keeps the reference tests' inputs (randn *
-#: 0.5). The cases at the models' shapes draw at 1.5, so that the scores'
+#: scale of q/k/v[, columns of v that are not zero]). The sweep keeps the
+#: reference tests' inputs (randn * 0.5). The cases at the models' shapes draw at 1.5, so that the scores'
 #: spread is ~2 and each output row is a mean of a few keys, of size ~0.4:
 #: at 0.5 the softmax is nearly flat, a late row averages hundreds of
 #: values to ~0.02, and the bfloat16 tolerance of 2e-2 could not see a
@@ -1470,6 +1516,19 @@ FLASH_CASES = (
      "bfloat16", 0.5),
     ("kv_len 300 qwen2", 2, 14, 2, 512, 512, 64, True, None, None, 300,
      "bfloat16", 1.5),
+    ("olmoe prefill", 4, 16, 16, 512, 512, 128, True, None, None, None,
+     "bfloat16", 1.5),
+    # MLA: q/k at nope + rope = 192, v's 128 columns zero-padded to 192
+    ("MLA prefill (deepseek-v2)", 1, 128, 128, 512, 512, 192, True, None,
+     None, None, "bfloat16", 1.5, 128),
+    ("seamless cross", 4, 16, 16, 512, 512, 64, False, None, None, None,
+     "bfloat16", 1.5),
+    ("seamless cross ragged Skv", 4, 16, 16, 512, 1000, 64, False, None,
+     None, None, "bfloat16", 1.5),
+    ("seamless cross fp32", 4, 16, 16, 512, 512, 64, False, None, None,
+     None, "float32", 1.5),
+    ("seamless cross ragged Skv fp32", 4, 16, 16, 512, 1000, 64, False,
+     None, None, None, "float32", 1.5),
 )
 #: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay)
 WKV_CASES = (
@@ -1530,11 +1589,17 @@ def model_kernel_parity(device) -> dict:
                           "wkv_split", "wkv"), 0.0)
     cases: dict = {}
     for (label, b, hq, hkv, sq, skv, d, causal, window, cap, kv_len,
-         dtype, scale) in FLASH_CASES:
+         dtype, scale, *v_cols) in FLASH_CASES:
         q, k, v = _flash_inputs(gen, device, b, hq, hkv, sq, skv, d, dtype,
                                 scale)
+        if v_cols:
+            v[..., v_cols[0]:] = 0
         got, route = _route_of_call(lambda: flash_attention_cuda(
             q, k, v, causal=causal, window=window, cap=cap, kv_len=kv_len))
+        if v_cols:
+            check(not got[..., v_cols[0]:].any(),
+                  f"flash_attention {label}: output columns {v_cols[0]}.. "
+                  f"of zero v columns are not exactly 0")
         check(route == flash_route(q.dtype, d),
               f"flash_attention {label} ran {route}")
         cases.setdefault(route, []).append(label)
@@ -1590,23 +1655,133 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _expected_cache(cfg, batch: int, max_len: int) -> list:
-    """(shape, dtype) of every cache leaf, as JAX's ``prefill`` gives them."""
-    dt = cfg.param_dtype
-    L = cfg.n_layers
+def _expected_cache(cfg, batch: int, max_len: int, enc_len: int = 0
+                    ) -> list:
+    """(shape, dtype) of every cache leaf, as JAX's ``prefill`` gives them,
+    in ``jax.tree_util.tree_leaves`` order (dict keys sorted, None
+    skipped)."""
+    dt, f32 = cfg.param_dtype, torch.float32
+    L, b = cfg.n_layers, batch
+    kv = (b, cfg.n_kv_heads, max_len, cfg.d_head)
     if cfg.family == "ssm":
         dk = cfg.d_model // cfg.n_heads
-        return [((L, batch, cfg.d_model), dt),
-                ((L, batch, cfg.n_heads, dk, dk), torch.float32),
-                ((L, batch, cfg.d_model), dt)]
+        return [((L, b, cfg.d_model), dt),
+                ((L, b, cfg.n_heads, dk, dk), f32),
+                ((L, b, cfg.d_model), dt)]
+    if cfg.family == "moe" and cfg.mla:
+        nd, nm = cfg.first_k_dense, L - cfg.first_k_dense
+        r, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+        dense = [((nd, b, max_len, r), dt), ((nd, b, max_len, rope), dt)] \
+            if nd else []
+        return [((nm, b, max_len, r), dt), *dense,
+                ((nm, b, max_len, rope), dt)]
+    if cfg.family == "hybrid":
+        np_ = L // cfg.attn_every
+        tail = L - np_ * cfg.attn_every
+        h, pd, n = cfg.n_heads, cfg.d_inner // cfg.n_heads, cfg.ssm_state
+        conv = (cfg.conv_kernel - 1, cfg.d_inner + 2 * n)
+        tails = [((tail, b, h, pd, n), f32), ((tail, b, *conv), dt)] \
+            if tail else []
+        return [((np_, *kv), dt),
+                ((np_, cfg.attn_every, b, h, pd, n), f32),
+                ((np_, cfg.attn_every, b, *conv), dt), *tails,
+                ((np_, *kv), dt)]
+    if cfg.family == "encdec":
+        Ld = cfg.dec_layers
+        x = (Ld, b, cfg.n_kv_heads, enc_len, cfg.d_head)
+        return [((Ld, *kv), dt), ((Ld, *kv), dt), (x, dt), (x, dt)]
     lead = (L // 2, 2) if cfg.layer_pattern == "local_global" else (L,)
-    shape = (*lead, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-    return [(shape, dt), (shape, dt)]
+    return [((*lead, *kv), dt), ((*lead, *kv), dt)]
 
 
 def _leaves(cache) -> list:
-    return [cache["k"], cache["v"]] if isinstance(cache, dict) \
-        else list(cache)
+    """The cache's tensors in ``jax.tree_util.tree_leaves`` order."""
+    if cache is None:
+        return []
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in _leaves(cache[k])]
+    if isinstance(cache, (tuple, list)):
+        return [t for c in cache for t in _leaves(c)]
+    return [cache]
+
+
+def attn_calls(cfg) -> int:
+    """Full-sequence kernel calls of one ``forward_full`` / ``prefill``:
+    one a layer (dense, moe, MLA; rwkv6's WKV), zamba2's shared block once
+    a period, seamless's encoder, decoder and cross-attention layers."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return cfg.n_layers
+
+
+def _cut(cfg, n_layers):
+    """``cfg`` at ``n_layers`` (None: as it is) and the cut as printed."""
+    if n_layers is None or n_layers == cfg.n_layers:
+        return cfg, None
+    return dataclasses.replace(cfg, n_layers=n_layers), \
+        f"n_layers {cfg.n_layers} -> {n_layers}"
+
+
+def _model_batch(cfg, tokens, gen, enc_len: int):
+    """The prompt batch of ``cfg``'s family: token ids, or for the
+    encoder-decoder ``enc_len`` random frames (the stubbed speech
+    frontend's output) and the decoder's tokens."""
+    if cfg.family == "encdec":
+        frames = torch.randn((tokens.shape[0], enc_len, cfg.d_model),
+                             generator=gen, device=tokens.device)
+        return {"frames": frames, "dec_tokens": tokens}
+    return {"tokens": tokens}
+
+
+class _RoutingLog:
+    """Records every ``router_topk`` call of the port's MoE (logits and
+    chosen experts) while active; the teacher-forced pass and decode are
+    then compared decision by decision."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self._moe, self._topk, self.calls = moe, moe.router_topk, []
+
+    def __enter__(self):
+        def topk(logits, k, renormalize=True):
+            w, idx = self._topk(logits, k, renormalize)
+            self.calls.append((logits.float(), idx))
+            return w, idx
+        self._moe.router_topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.router_topk = self._topk
+
+
+def _routing_report(full: list, pre: list, steps: list, cut: int,
+                    k: int) -> dict:
+    """Decisions of the prefill (rows < cut) and of each decode step
+    against the teacher-forced pass's rows for the same positions, per MoE
+    layer (one row a token, b = 1): how many differ, and each one's margin,
+    the gap between the k-th and the (k+1)-th expert's probability in the
+    teacher-forced pass."""
+    n = len(full)
+    check(len(pre) == n and len(steps) % max(n, 1) == 0,
+          f"routing calls: {len(full)} / {len(pre)} / {len(steps)}")
+    flips, decisions, min_margin = [], 0, math.inf
+    for layer, (logits, idx) in enumerate(full):
+        top = torch.topk(torch.softmax(logits, -1), k + 1, dim=-1).values
+        margin = (top[:, k - 1] - top[:, k]).cpu()
+        min_margin = min(min_margin, float(margin.min()))
+        want = torch.sort(idx, -1).values.cpu()
+        rows = [(pos, pre[layer][1][pos]) for pos in range(cut)]
+        rows += [(cut + t, steps[t * n + layer][1][0])
+                 for t in range(len(steps) // max(n, 1))]
+        for pos, got in rows:
+            decisions += 1
+            if not torch.equal(torch.sort(got, -1).values.cpu(), want[pos]):
+                flips.append(dict(layer=layer, position=pos,
+                                  margin=float(margin[pos])))
+    return dict(decisions=decisions, differ=len(flips), flips=flips,
+                min_margin=min_margin if n else None)
 
 
 def profile_busy(fn, device, match: str, top: int = 0) -> dict:
@@ -1651,18 +1826,26 @@ def _fmt_idle(r: dict) -> str:
 
 
 def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
-                worker_steps, seed, route=None, config=get_config) -> dict:
-    """One published model at full width and depth in bf16 (the config's
-    dtype), parameters drawn on the card from ``seed``: ``make_prefill_step``
-    on ``batch`` prompts of ``prompt`` tokens, ``decode_steps`` greedy steps
-    of ``make_decode_step`` from its cache, then two ``ServingWorker``s on
-    one ``ExecutablePool`` (a cold start, then a pool hit) decoding
+                worker_steps, seed, route=None, n_layers=None,
+                config=get_config) -> dict:
+    """One published model at full width in bf16 (the config's dtype), at
+    full depth or at ``n_layers`` (printed as ``reduced``), parameters
+    drawn on the card from ``seed``: ``make_prefill_step`` on ``batch``
+    prompts of ``prompt`` tokens (the encoder-decoder: ``prompt`` frames
+    and ``prompt`` decoder tokens), ``decode_steps`` greedy steps of
+    ``make_decode_step`` from its cache, then two ``ServingWorker``s on one
+    ``ExecutablePool`` (a cold start, then a pool hit) decoding
     ``worker_steps`` tokens each. Launch counters are cleared just before
     each of the three and read just after; on the card the prefill must
-    launch ``route`` once a layer and nothing else. Then the times, while
-    the model is on the card. ``config`` maps the arch to its config (the
-    tests rehearse this phase on the CPU with the smoke configs)."""
-    cfg = config(arch)
+    launch ``route`` once an attention call (``attn_calls``) and nothing
+    else. Then the times, while the model is on the card, and the peak of
+    the card's allocated memory over the phase. ``config`` maps the arch
+    to its config (the tests rehearse this phase on the CPU with the smoke
+    configs)."""
+    cfg, reduced = _cut(config(arch), n_layers)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device)
@@ -1671,15 +1854,15 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     n_params = count_params(params)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
                            device=device, dtype=torch.int32)
+    batch_in = _model_batch(cfg, tokens, gen, prompt)
     prefill_step = make_prefill_step(cfg, max_len)
     step = make_decode_step(cfg)
 
-    on_card = torch.device(device).type == "cuda"
     _build.launches.clear()
-    logits, cache = prefill_step(params, {"tokens": tokens})
+    logits, cache = prefill_step(params, batch_in)
     _sync(device)
     prefill_launches = dict(_build.launches)
-    want = {route: cfg.n_layers} if on_card else {}
+    want = {route: attn_calls(cfg)} if on_card else {}
     check(prefill_launches == want,
           f"{arch} prefill launched {prefill_launches}, expected {want}")
     check(logits.shape == (batch, cfg.vocab)
@@ -1688,8 +1871,8 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
           f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
           f"finite {bool(torch.isfinite(logits).all())}")
     got = [(tuple(t.shape), t.dtype) for t in _leaves(cache)]
-    check(got == _expected_cache(cfg, batch, max_len),
-          f"{arch} cache {got} != JAX's {_expected_cache(cfg, batch, max_len)}")
+    want = _expected_cache(cfg, batch, max_len, enc_len=prompt)
+    check(got == want, f"{arch} cache {got} != JAX's {want}")
 
     _build.launches.clear()
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1728,7 +1911,8 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
               and t.max() < cfg.vocab for t in wtoks),
           f"{arch} worker tokens out of range")
     del workers
-    print(f"serve {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"serve {arch} ({cfg.n_layers} layers"
+          f"{f', reduced: {reduced}' if reduced else ''}, d {cfg.d_model}, "
           f"{n_params} parameters {cfg.dtype} (the reference's analytic "
           f"count_params_config: {count_params_config(cfg)}), drawn in "
           f"{init_s:.3f} s): "
@@ -1741,7 +1925,6 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
           f"shapes and dtypes as JAX's")
 
     # times, outside the counted runs
-    batch_in = {"tokens": tokens}
     walls = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -1764,7 +1947,9 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     del cache, logits
     prof = profile_busy(lambda: prefill_step(params, batch_in), device,
                         KERNEL_SYMBOLS.get(route), top=6)
-    r = dict(arch=arch, n_layers=cfg.n_layers, n_params=n_params,
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    r = dict(arch=arch, n_layers=cfg.n_layers, reduced=reduced,
+             n_params=n_params, peak_memory_bytes=peak,
              batch=batch, prompt=prompt, max_len=max_len, init_s=init_s,
              prefill_launches=prefill_launches,
              decode_launches=decode_launches, prefill_ms=prefill_ms,
@@ -1779,7 +1964,8 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
           f"{decode_ms:.3f} ms per step ({r['decode_tokens_per_s']:.1f} "
           f"tokens/s over {batch} slots); bootstrap cold "
           f"{r['bootstrap_cold_ms']:.3f} ms, pool hit "
-          f"{r['bootstrap_hit_ms']:.3f} ms")
+          f"{r['bootstrap_hit_ms']:.3f} ms; peak allocated memory "
+          f"{peak if peak is not None else 'not measured (no card)'} B")
     for what, p in (("prefill", prof), ("decode step", decode_prof)):
         print(f"profile {what} {arch}: wall {p['wall_ms']:.3f} ms "
               f"(profiled), card busy {p['busy_ms']:.3f} ms over "
@@ -1796,26 +1982,40 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
 
 # ------------------------------------ 10. prefill -> decode consistency
 def consistency(device, *, arch, s, cut, tol, seed, route=None,
-                config=get_config) -> dict:
+                n_layers=None, config=get_config) -> dict:
     """The port of ``tests/test_models.py::test_prefill_decode_consistency``
-    at full width in float32 (TF32 off): the teacher-forced logits of
+    at full width in float32 (TF32 off), with the reference's settings (a
+    no-drop capacity of 1000 for MoE): the teacher-forced logits of
     ``forward_full`` over ``s`` tokens (the kernels) against ``prefill`` of
     the first ``cut`` (the kernels) and ``decode_step`` over the rest (the
-    plain ``decode_attention`` / ``wkv_decode`` recurrence), at atol = rtol
-    = ``tol``, every layer. On the card forward_full and prefill must
-    launch ``route`` once a layer each and nothing else."""
-    cfg = dataclasses.replace(config(arch), dtype="float32")
+    plain ``decode_attention`` / absorbed MLA / ``ssd_decode`` / ``wkv_decode``
+    recurrences), at atol = rtol = ``tol``, every layer (or ``n_layers``).
+    The encoder-decoder's encoder reads ``cut`` random frames. On the card
+    forward_full and prefill must launch ``route`` once an attention call
+    each and nothing else. For MoE, every routing decision of the prefill
+    and of each decode step is compared with the teacher-forced pass's for
+    the same position; one that differs is a fault unless its margin is
+    below ``ROUTING_TIE``."""
+    cfg, reduced = _cut(config(arch), n_layers)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1000.0)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
     tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen,
                            device=device, dtype=torch.int32)
+    batch = _model_batch(cfg, tokens, gen, cut)
+    key = "dec_tokens" if cfg.family == "encdec" else "tokens"
     _build.launches.clear()
-    hidden = forward_full(cfg, params, {"tokens": tokens})[0]
+    with _RoutingLog() as full_log:
+        hidden = forward_full(cfg, params, batch)[0]
     full = unembed_chunk(cfg, params, hidden[:, cut - 1:s - 1])
-    logits, cache = prefill(cfg, params, {"tokens": tokens[:, :cut]}, s)
+    with _RoutingLog() as pre_log:
+        logits, cache = prefill(cfg, params,
+                                dict(batch, **{key: tokens[:, :cut]}), s)
     _sync(device)
     full_launches = dict(_build.launches)
-    want = {route: 2 * cfg.n_layers} \
+    want = {route: 2 * attn_calls(cfg)} \
         if torch.device(device).type == "cuda" else {}
     check(full_launches == want,
           f"consistency {arch}: forward_full + prefill launched "
@@ -1823,24 +2023,37 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
     errs = [_within(logits, full[:, 0], tol, tol,
                     f"consistency {arch}: prefill logits")]
     _build.launches.clear()
-    for t in range(s - cut - 1):
-        logits, cache = decode_step(cfg, params, cache, tokens[:, cut + t],
-                                    cut + t)
-        errs.append(_within(logits, full[:, t + 1], tol, tol,
-                            f"consistency {arch}: decode step {t}"))
+    with _RoutingLog() as step_log:
+        for t in range(s - cut - 1):
+            logits, cache = decode_step(cfg, params, cache,
+                                        tokens[:, cut + t], cut + t)
+            errs.append(_within(logits, full[:, t + 1], tol, tol,
+                                f"consistency {arch}: decode step {t}"))
     _sync(device)
     check(dict(_build.launches) == {},
           f"consistency {arch}: decode launched {dict(_build.launches)}")
-    print(f"consistency {arch} float32 (all {cfg.n_layers} layers, full "
-          f"width; s {s}, cut "
-          f"{cut}): prefill and {s - cut - 1} decode steps match "
+    routing = None
+    if cfg.n_experts:
+        routing = _routing_report(full_log.calls, pre_log.calls,
+                                  step_log.calls, cut, cfg.top_k)
+        bad = [f for f in routing["flips"] if f["margin"] >= ROUTING_TIE]
+        check(not bad, f"consistency {arch}: routing decisions differ "
+              f"beyond a near-tie: {bad}")
+    print(f"consistency {arch} float32 ({cfg.n_layers} layers"
+          f"{f', reduced: {reduced}' if reduced else ''}, full width; s "
+          f"{s}, cut {cut}): prefill and {s - cut - 1} decode steps match "
           f"forward_full within {tol} (max abs err {max(errs):.3e}; "
-          f"forward_full + prefill launched {full_launches})")
+          f"forward_full + prefill launched {full_launches})"
+          + (f"; routing: {routing['differ']} of {routing['decisions']} "
+             f"decisions differ from the teacher-forced pass "
+             f"{routing['flips']}, smallest k-th / (k+1)-th margin there "
+             f"{routing['min_margin']:.3e}" if routing else ""))
     del params, cache, hidden, full
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(arch=arch, n_layers=cfg.n_layers, max_abs_err=max(errs),
-                launches=full_launches)
+    return dict(arch=arch, n_layers=cfg.n_layers, reduced=reduced,
+                max_abs_err=max(errs), launches=full_launches,
+                routing=routing)
 
 
 # --------------------------------------------- 11. model kernel timing
@@ -1950,44 +2163,118 @@ def _bound(nbytes, flops, peak):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def measure_model_kernels(device) -> dict:
+#: the flash-attention shapes of the bf16 prefills on the main path
+#: (``SERVE_SIZE``): (arch, what, b, hq, hkv, sq, skv, d, causal, columns of
+#: v that are not zero). The first row is the headline of
+#: ``flash_attention_mma`` in the ``kernels`` line.
+FLASH_MODEL_SHAPES = (
+    ("qwen2_0_5b", "attention", 8, 14, 2, 512, 512, 64, True, None),
+    ("olmoe_1b_7b", "attention", 4, 16, 16, 512, 512, 128, True, None),
+    ("deepseek_v2_236b", "MLA, v zero-padded 128 -> 192", 4, 128, 128, 512,
+     512, 192, True, 128),
+    ("zamba2_1_2b", "shared block", 4, 32, 32, 512, 512, 64, True, None),
+    ("seamless_m4t_medium", "encoder self and cross", 4, 16, 16, 512, 512,
+     64, False, None),
+    ("seamless_m4t_medium", "decoder self", 4, 16, 16, 512, 512, 64, True,
+     None),
+)
+
+
+def _flash_work(q, k, v, causal) -> tuple:
+    """Bytes (q, k, v read once, o written once) and operations (QK^T and
+    PV over the pairs the mask keeps) of one attention call."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return nbytes, 4 * b * hq * d * pairs
+
+
+def _sdpa_name(causal) -> str:
+    return (f"torch.nn.functional.scaled_dot_product_attention("
+            f"is_causal={causal}, enable_gqa=True)")
+
+
+def measure_flash_shapes(device) -> list:
+    """``flash_attention_cuda`` at each ``FLASH_MODEL_SHAPES`` shape in
+    bf16: the route it takes, its output against the plain version and
+    SDPA at 2e-2 (below the output's mean magnitude, and with the output
+    columns of zero v columns exactly 0), its device time per launch, the
+    plain version's, SDPA's on the same inputs and the bound (bf16
+    operations at the tensor cores' peak, whichever route runs)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows = []
+    for arch, what, b, hq, hkv, sq, skv, d, causal, v_cols \
+            in FLASH_MODEL_SHAPES:
+        label = f"{arch} {what}"
+        q, k, v = _flash_inputs(gen, device, b, hq, hkv, sq, skv, d,
+                                "bfloat16", 1.5)
+        if v_cols:
+            v[..., v_cols:] = 0
+        got, route = _route_of_call(lambda: flash_attention_cuda(
+            q, k, v, causal=causal))
+        check(route == flash_route(q.dtype, d), f"{label} ran {route}")
+        if v_cols:
+            check(not got[..., v_cols:].any(), f"{label}: output columns "
+                  f"{v_cols}.. of zero v columns are not exactly 0")
+        plain = lambda: flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal)
+        want = plain()
+        mean_abs = float(want.float().abs().mean())
+        check(2e-2 < mean_abs, f"{label}: tolerance 2e-2 is not below the "
+              f"output's mean magnitude {mean_abs}")
+        err = _within(got, want, 2e-2, 2e-2, f"{label} vs plain")
+        lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+        _within(got, lib_call(), 2e-2, 2e-2, f"{label} vs SDPA")
+        del want
+        kern = lambda: flash_attention_cuda(q, k, v,  # noqa: E731
+                                            causal=causal)
+        turns = [device_ms(f, 20, device) for f in (kern, lib_call, kern,
+                                                     lib_call)]
+        rows.append(dict(
+            arch=arch, what=what, route=route,
+            shape=f"q ({b}, {hq}, {sq}, {d}) bf16, k/v ({b}, {hkv}, {skv}, "
+                  f"{d}), {'causal' if causal else 'non-causal'}",
+            max_abs_err=err, ms=turns[0], ms_turns=turns[0::2],
+            library_ms=turns[1], library_ms_turns=turns[1::2],
+            library=_sdpa_name(causal),
+            plain_ms=device_ms(plain, 5, device),
+            **_bound(*_flash_work(q, k, v, causal), BF16_FLOP_PER_S)))
+        del q, k, v, got
+    for r in rows:
+        print(f"time {r['route']} at {r['arch']}'s {r['what']}, {r['shape']}:"
+              f" kernel {r['ms']:.6f} ms (turns {r['ms_turns']}), "
+              f"{r['ms'] / r['bound_ms']:.3f} x its bound {r['bound_ms']:.6f}"
+              f" ms ({r['bound_by']}; {r['bytes']} B, {r['flops']} FLOP); "
+              f"plain {r['plain_ms']:.6f} ms (max abs err "
+              f"{r['max_abs_err']}); SDPA {r['library_ms']:.6f} ms "
+              f"(turns {r['library_ms_turns']}; kernel / SDPA "
+              f"{r['ms'] / r['library_ms']:.3f})")
+    return rows
+
+
+def measure_model_kernels(device, flash_shapes) -> dict:
     """Each model entry point at the shape its main path gives it: device
     time per launch, the plain version's, the library call's where one
-    computes the same function (SDPA, causal, GQA; WKV has none) and the
-    bound, the larger of bytes over 3.35 TB/s and operations over the peak
-    for their type (bf16: the tensor cores; float32: the CUDA cores, since
-    no route uses TF32). The one-CTA-a-head ``wkv``, on no main-path run,
-    at rwkv6-7b's heads over an 8-token prompt (one chunk of 8)."""
+    computes the same function (SDPA, GQA; WKV has none) and the bound, the
+    larger of bytes over 3.35 TB/s and operations over the peak for their
+    type (bf16: the tensor cores; float32: the CUDA cores, since no route
+    uses TF32). ``flash_attention_mma`` is qwen2-0.5b's row of
+    ``flash_shapes`` (``measure_flash_shapes``). The one-CTA-a-head
+    ``wkv``, on no main-path run, at rwkv6-7b's heads over an 8-token
+    prompt (one chunk of 8)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(9)
-    out = {}
     sdpa = F.scaled_dot_product_attention
-    library = ("torch.nn.functional.scaled_dot_product_attention("
-               "is_causal=True, enable_gqa=True)")
-
-    # flash_attention_mma at qwen2-0.5b's prefill (bf16)
-    b, hq, hkv, s, d = 8, 14, 2, 512, 64
-    q, k, v = _flash_inputs(gen, device, b, hq, hkv, s, s, d, "bfloat16",
-                            1.5)
-    got, route = _route_of_call(lambda: flash_attention_cuda(q, k, v))
-    check(route == "flash_attention_mma", f"qwen2's prefill shape ran {route}")
-    lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
-    _within(got, lib, 2e-2, 2e-2, "flash_attention_mma vs SDPA")
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-    flops = 4 * b * hq * d * (s * (s + 1) // 2)      # QK^T and PV, causal
-    mma = lambda: flash_attention_cuda(q, k, v)      # noqa: E731
-    lib_call = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
-                            enable_gqa=True)
-    turns = [device_ms(f, 50, device) for f in (mma, lib_call, mma, lib_call)]
-    out["flash_attention_mma"] = dict(
-        shape=f"q ({b}, {hq}, {s}, {d}) bf16, k/v ({b}, {hkv}, {s}, {d}), "
-              f"causal", route=route, ms=turns[0], ms_turns=turns[0::2],
-        plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
-        library_ms=turns[1], library_ms_turns=turns[1::2], library=library,
-        **_bound(nbytes, flops, BF16_FLOP_PER_S))
-    del q, k, v, got, lib
+    check(flash_shapes[0]["arch"] == "qwen2_0_5b"
+          and flash_shapes[0]["route"] == "flash_attention_mma",
+          f"qwen2's prefill shape ran {flash_shapes[0]['route']}")
+    out = {"flash_attention_mma": flash_shapes[0]}
 
     # flash_attention (CUDA cores) at qwen2's float32 consistency prefill
+    hq, hkv, d = 14, 2, 64
     cs = CONSISTENCY_SIZE["cut"]
     q, k, v = _flash_inputs(gen, device, 1, hq, hkv, cs, cs, d, "float32",
                             1.5)
@@ -1995,8 +2282,6 @@ def measure_model_kernels(device) -> dict:
     check(route == "flash_attention", f"float32 ran {route}")
     _within(got, flash_attention_ref(q, k, v), 2e-5, 2e-5,
             "flash_attention float32 vs plain")
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + got.numel())
-    flops = 4 * hq * d * (cs * (cs + 1) // 2)
     out["flash_attention"] = dict(
         shape=f"q (1, {hq}, {cs}, {d}) float32, k/v (1, {hkv}, {cs}, {d}), "
               f"causal", route=route,
@@ -2004,7 +2289,8 @@ def measure_model_kernels(device) -> dict:
         plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
         library_ms=device_ms(lambda: sdpa(q, k, v, is_causal=True,
                                           enable_gqa=True), 50, device),
-        library=library, **_bound(nbytes, flops, FP32_FLOP_PER_S))
+        library=_sdpa_name(True),
+        **_bound(*_flash_work(q, k, v, True), FP32_FLOP_PER_S))
     del q, k, v, got
 
     # wkv_split at rwkv6-7b's prefill, on the model's head-transposed views
@@ -2647,6 +2933,16 @@ def gateway_phase(traces: dict, response: dict) -> dict:
     return res
 
 
+def _run_summary(r: dict) -> dict:
+    """The serving phase's numbers of one model, for the ``kernels`` line."""
+    keys = ("n_layers", "reduced", "n_params", "peak_memory_bytes",
+            "prefill_launches", "decode_launches", "prefill_ms",
+            "decode_ms_per_step", "bootstrap_cold_ms", "bootstrap_hit_ms")
+    return dict({k: r[k] for k in keys},
+                prefill_idle_share=r["prefill_profile"]["idle_share"],
+                decode_idle_share=r["decode_profile"]["idle_share"])
+
+
 # ------------------------------------------------------------------- main
 #: launches each main-path run must make, exactly (see the module docstring)
 LOOKUP_LAUNCHES = {
@@ -2699,10 +2995,13 @@ def main() -> int:
     busy = chain_busy_share(device, k64, CHAIN_SPANS)
     serving = {m["arch"]: serve_model(device, **m, **SERVE_STEPS)
                for m in SERVE_SIZE}
-    consistent = [consistency(device, arch=arch, route=route,
-                              **CONSISTENCY_SIZE)
-                  for arch, route in CONSISTENCY.items()]
-    model_times = measure_model_kernels(device)
+    consistent = [consistency(device, arch=arch,
+                              **{**CONSISTENCY_SIZE, **settings})
+                  for arch, settings in CONSISTENCY.items()]
+    flash_shapes = measure_flash_shapes(device)
+    for r in flash_shapes:
+        errs[r["route"]] = max(errs[r["route"]], r["max_abs_err"])
+    model_times = measure_model_kernels(device, flash_shapes)
     ptxas = ptxas_phase()
     dkv = dkv_phase(device, **DKV_SIZE)
     check(dkv["launches"] == DKV_LAUNCHES,
@@ -2755,11 +3054,26 @@ def main() -> int:
     for row in consistent:
         launches.update(row["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
+    by_arch = {row["arch"]: row for row in consistent}
     kernels = []
     model_runs = {"flash_attention_mma": dict(serve=qwen2),
-                  "flash_attention": dict(consistency=consistent[0]),
-                  "wkv_split": dict(serve=rwkv6, consistency=consistent[1]),
+                  "flash_attention": dict(consistency=by_arch["qwen2_0_5b"]),
+                  "wkv_split": dict(serve=rwkv6,
+                                    consistency=by_arch["rwkv6_7b"]),
                   "wkv": dict(main_path=False)}
+    # the moe, MLA, hybrid and encoder-decoder runs of each flash route,
+    # and its times at their prefill shapes with the prefill's launches
+    for name in ("flash_attention_mma", "flash_attention"):
+        model_runs[name].update(
+            serve_models={a: _run_summary(r) for a, r in serving.items()
+                          if name in r["prefill_launches"]
+                          and a != "qwen2_0_5b"},
+            consistency_models={a: r for a, r in by_arch.items()
+                                if name in r["launches"]
+                                and a != "qwen2_0_5b"},
+            by_shape=[dict(r, launches_a_prefill=serving[r["arch"]][
+                "prefill_launches"].get(name, 0))
+                for r in flash_shapes if r["route"] == name])
     #: the batch or shape each lookup and gather entry point is reported at
     headline = {"race_lookup_tiled_byval": 512, "race_lookup_tiled": 4096,
                 "race_lookup_scalar_byval": 4096, "race_lookup_scalar": 4096,

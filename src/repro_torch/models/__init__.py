@@ -1,6 +1,7 @@
-"""PyTorch model zoo (the counterpart of ``repro.models``): the dense and
-ssm (rwkv6) families, with the flash-attention and WKV kernels on the
-card. The moe, hybrid and encdec families wait (ROADMAP Queue 1 item 6)."""
+"""PyTorch model zoo (the counterpart of ``repro.models``): every family
+of the ten published configs (dense, moe with MLA, ssm (rwkv6), the
+Mamba-2 hybrid and the encoder-decoder), with the flash-attention and WKV
+kernels on the card."""
 
 from .config import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K,
                      SHAPES_BY_NAME, TRAIN_4K, ModelConfig, ShapeSpec)

@@ -9,9 +9,10 @@ so ``model.py`` drives them with a Python loop over the stacked layer axis
 (JAX's ``lax.scan``). JAX's remat wrappers have no counterpart: the port
 serves, it does not train.
 
-MLA, MoE, Mamba-2 and cross-attention layers wait for their modules
-(ROADMAP Queue 1 item 6); ``model.py`` raises ``NotImplementedError`` for
-their families.
+The layers of every family: dense and MoE transformer layers, MLA layers
+(deepseek-v2), rwkv6 and Mamba-2 mixers, and the encoder-decoder's
+cross-attention. A decode layer writes the new token's entries into the
+cache tensors it is given, in place, and returns them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import torch
 
 from .attention import attention, decode_attention
 from .common import act_fn, apply_norm, apply_rope
+from .mamba2 import mamba2_mixer
+from .mla import mla_attention_train, mla_decode_step
+from .moe import moe_ffn
 from .rwkv6 import channel_mix, time_mix
 
 
@@ -86,9 +90,6 @@ def mlp(cfg, p, x):
 def dense_layer_full(cfg, p, x, positions, window, *, causal=True,
                      ffn: str = "mlp"):
     """Pre-norm transformer layer; gemma2 adds post (sandwich) norms."""
-    if ffn != "mlp":
-        raise NotImplementedError("MoE FFN layers wait for the moe module "
-                                  "(ROADMAP Queue 1 item 6)")
     h = _norm(cfg, p, "ln1", x)
     attn, kv = self_attention_full(cfg, p, h, positions, window,
                                    causal=causal)
@@ -97,7 +98,10 @@ def dense_layer_full(cfg, p, x, positions, window, *, causal=True,
     x = x + attn
     h = _norm(cfg, p, "ln2", x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out = mlp(cfg, p, h)
+    if ffn == "moe":
+        out, aux = moe_ffn(cfg, p, h)
+    else:
+        out = mlp(cfg, p, h)
     if cfg.post_norms:
         out = apply_norm(cfg, out, p.get("post_ln2"))
     return x + out, kv, aux
@@ -105,9 +109,6 @@ def dense_layer_full(cfg, p, x, positions, window, *, causal=True,
 
 def dense_layer_decode(cfg, p, x, kcache, vcache, cur_len: int, window,
                        ffn: str = "mlp"):
-    if ffn != "mlp":
-        raise NotImplementedError("MoE FFN layers wait for the moe module "
-                                  "(ROADMAP Queue 1 item 6)")
     h = _norm(cfg, p, "ln1", x)
     attn, kcache, vcache = self_attention_decode(
         cfg, p, h, kcache, vcache, cur_len, window)
@@ -115,10 +116,40 @@ def dense_layer_decode(cfg, p, x, kcache, vcache, cur_len: int, window,
         attn = apply_norm(cfg, attn, p.get("post_ln1"))
     x = x + attn
     h = _norm(cfg, p, "ln2", x)
-    out = mlp(cfg, p, h)
+    out = moe_ffn(cfg, p, h)[0] if ffn == "moe" else mlp(cfg, p, h)
     if cfg.post_norms:
         out = apply_norm(cfg, out, p.get("post_ln2"))
     return x + out, kcache, vcache
+
+
+def mla_layer_full(cfg, p, x, positions, ffn: str, collect: bool = False):
+    """MLA attention then an MLP or MoE FFN. Returns (x, (ckv, krope) or
+    None, aux)."""
+    h = _norm(cfg, p, "ln1", x)
+    if collect:
+        attn, cache = mla_attention_train(cfg, p, h, positions,
+                                          return_cache=True)
+    else:
+        attn, cache = mla_attention_train(cfg, p, h, positions), None
+    x = x + attn
+    h = _norm(cfg, p, "ln2", x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "moe":
+        out, aux = moe_ffn(cfg, p, h)
+    else:
+        out = mlp(cfg, p, h)
+    return x + out, cache, aux
+
+
+def mla_layer_decode(cfg, p, x, ckv_cache, krope_cache, cur_len: int,
+                     ffn: str):
+    h = _norm(cfg, p, "ln1", x)
+    attn, ckv_cache, krope_cache = mla_decode_step(
+        cfg, p, h, ckv_cache, krope_cache, cur_len + 1)
+    x = x + attn
+    h = _norm(cfg, p, "ln2", x)
+    out = moe_ffn(cfg, p, h)[0] if ffn == "moe" else mlp(cfg, p, h)
+    return x + out, ckv_cache, krope_cache
 
 
 def rwkv_layer_full(cfg, p, x, att_state, chunk=16):
@@ -144,3 +175,51 @@ def rwkv_layer_decode(cfg, p, x, cache):
     h = _norm(cfg, p, "ln2", x)
     ffn, cmix_xprev = channel_mix(cfg, p, h, cmix_xprev)
     return x + ffn, (att_xprev, att_state, cmix_xprev)
+
+
+def mamba_layer_full(cfg, p, x, state, chunk=64):
+    """state: (B,H,P,N) f32 initial state. Returns (x, (state, conv_cache))
+    for the streaming handoff (prefill->decode)."""
+    h = _norm(cfg, p, "ln1", x)
+    out, state, conv_cache = mamba2_mixer(cfg, p, h, state, None,
+                                          chunk=chunk)
+    return x + out, (state, conv_cache)
+
+
+def mamba_layer_decode(cfg, p, x, cache):
+    state, conv_cache = cache
+    h = _norm(cfg, p, "ln1", x)
+    out, state, conv_cache = mamba2_mixer(cfg, p, h, state, conv_cache,
+                                          decode=True)
+    return x + out, (state, conv_cache)
+
+
+def cross_attention_full(cfg, p, x, memory):
+    """Decoder cross-attention over the encoder memory, non-causal, Sq =
+    decoder length and Skv = encoder length. Returns (out, (xk, xv))."""
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h = apply_norm(cfg, x, p.get("xln"))
+    q = torch.einsum("bsd,de->bse", h, p["xwq"]).reshape(
+        b, s, hq, hd).transpose(1, 2)
+    k = torch.einsum("bsd,de->bse", memory, p["xwk"]).reshape(
+        b, memory.shape[1], hkv, hd).transpose(1, 2)
+    v = torch.einsum("bsd,de->bse", memory, p["xwv"]).reshape(
+        b, memory.shape[1], hkv, hd).transpose(1, 2)
+    o = attention(cfg, q, k, v, causal=False)
+    b2, hh, s2, hd2 = o.shape
+    o = o.transpose(1, 2).reshape(b2, s2, hh * hd2)
+    return torch.einsum("bse,ed->bsd", o, p["xwo"]), (k, v)
+
+
+def cross_attention_decode(cfg, p, x, xk, xv):
+    """Cross-attention with the memory's precomputed K/V (all of it
+    visible)."""
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h = apply_norm(cfg, x, p.get("xln"))
+    q = torch.einsum("bsd,de->bse", h, p["xwq"]).reshape(
+        b, s, hq, hd).transpose(1, 2)
+    o = decode_attention(q, xk, xv, xk.shape[2])
+    o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    return torch.einsum("bse,ed->bsd", o, p["xwo"])

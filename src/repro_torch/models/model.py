@@ -1,6 +1,6 @@
 """Top-level LM: embedding -> layer loops -> norm -> (chunked) loss, plus
 the serving entry points (prefill / single-token decode with caches): the
-counterpart of ``repro/models/model.py`` for the dense and ssm families.
+counterpart of ``repro/models/model.py`` for every family.
 
 Public entry points (cfg first, as in JAX; no ``jit``: PyTorch runs
 eagerly, and a Python loop over the stacked layer axis takes the place of
@@ -13,17 +13,23 @@ eagerly, and a Python loop over the stacked layer axis takes the place of
   decode_step(cfg, params, cache, tokens, cur_len) -> (logits, cache)
 
 Batch schema (labels use -1 for masked positions):
-  dense/ssm:     {tokens (B,S) int, labels (B,S) int}
+  dense/moe/ssm/hybrid: {tokens (B,S) int, labels (B,S) int}
   vlm frontend:  + {vision_embeds (B,T_img,1024)}; tokens are text-only
+  encdec:        {frames (B,S_enc,d), dec_tokens (B,S_dec), labels}
+
+Cache trees, shapes and dtypes are JAX's: dense and moe {"k", "v"}; MLA
+{"dense_ckv", "dense_krope", "ckv", "krope"}; ssm a tuple of three; hybrid
+{"mamba": (state f32, conv), "k", "v", "tail"} (``tail`` None without tail
+layers); encdec {"k", "v", "xk", "xv"}.
 
 On the card, ``forward_full`` and ``prefill`` launch the flash-attention
-kernel once per attention layer (dense) or the WKV kernel once per layer
-(ssm); ``decode_step`` launches neither (plain ``decode_attention`` /
-``wkv_decode``). ``decode_step`` writes the new token's entries into the
-cache tensors it is given, in place, and returns them.
-
-The moe, hybrid and encdec families wait for their modules (ROADMAP
-Queue 1 item 6) and raise ``NotImplementedError``.
+kernel once per attention call (each dense, moe and MLA layer; zamba2's
+shared block once a period; seamless's encoder, decoder and
+cross-attention layers) or the WKV kernel once per layer (ssm);
+``decode_step`` launches neither (plain ``decode_attention``, the absorbed
+MLA decode, ``ssd_decode`` and ``wkv_decode``). ``decode_step`` writes the
+new token's entries into the cache tensors it is given, in place, and
+returns them.
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ import torch
 
 from . import blocks as B
 from .common import apply_norm, dtype_scalar, softcap
-from .params import PORTED_FAMILIES, _unported
 
 AUX_WEIGHT = 0.01
 
@@ -44,11 +49,6 @@ def _largest_divisor(n: int, target: int) -> int:
     while n % c:
         c -= 1
     return c
-
-
-def _check_family(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise _unported(cfg)
 
 
 def _layer(tree, i: int):
@@ -181,18 +181,182 @@ def run_ssm_decode(cfg, params_blocks, x, cache):
     return x, cache
 
 
+def run_mla_full(cfg, params, x, positions, collect=False):
+    """deepseek-v2: the dense first layers (``dense_blocks``), then the MoE
+    layers. Returns (x, {"dense": (ckv, krope) stacked, "moe": ...}, aux);
+    each entry None unless ``collect``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = {}
+    for key, name, ffn in (("dense_blocks", "dense", "mlp"),
+                           ("blocks", "moe", "moe")):
+        if key not in params:
+            continue
+        ckvs, krs = [], []
+        for i in range(_n_stacked(params[key])):
+            x, cache, aux_i = B.mla_layer_full(
+                cfg, _layer(params[key], i), x, positions, ffn=ffn,
+                collect=collect)
+            aux = aux + aux_i
+            if collect:
+                ckvs.append(cache[0])
+                krs.append(cache[1])
+        caches[name] = (torch.stack(ckvs), torch.stack(krs)) \
+            if collect else None
+    return x, caches, aux
+
+
+def run_mla_decode(cfg, params, x, cache, cur_len: int):
+    """One token through every MLA layer; writes the latent caches in
+    place."""
+    for key, ffn, ckv, kr in (("dense_blocks", "mlp", "dense_ckv",
+                               "dense_krope"),
+                              ("blocks", "moe", "ckv", "krope")):
+        if key not in params:
+            continue
+        for i in range(_n_stacked(params[key])):
+            x, _, _ = B.mla_layer_decode(cfg, _layer(params[key], i), x,
+                                         cache[ckv][i], cache[kr][i],
+                                         cur_len, ffn=ffn)
+    return x, cache
+
+
+def _mamba_full(cfg, stacked, x):
+    """Every mamba layer of a stacked segment, each from a zero state.
+    Returns (x, (state (L,B,H,P,N) f32, conv (L,B,k-1,conv_dim)))."""
+    b = x.shape[0]
+    h, pd, n = cfg.n_heads, cfg.d_inner // cfg.n_heads, cfg.ssm_state
+    states, convs = [], []
+    for i in range(_n_stacked(stacked)):
+        state0 = torch.zeros((b, h, pd, n), dtype=torch.float32,
+                             device=x.device)
+        x, (st, cv) = B.mamba_layer_full(cfg, _layer(stacked, i), x, state0)
+        states.append(st)
+        convs.append(cv)
+    return x, (torch.stack(states), torch.stack(convs))
+
+
+def _mamba_decode(cfg, stacked, x, cache):
+    """One token through a stacked segment of mamba layers; writes the
+    (state, conv) cache tensors in place."""
+    states, convs = cache
+    for i in range(_n_stacked(stacked)):
+        x, (st, cv) = B.mamba_layer_decode(cfg, _layer(stacked, i), x,
+                                           (states[i], convs[i]))
+        states[i] = st
+        convs[i] = cv
+    return x
+
+
+def run_hybrid_full(cfg, params, x, positions, collect=False):
+    """zamba2: periods of mamba layers, each followed by the one shared
+    attention block; then a tail of mamba layers. Returns (x, (mcaches
+    stacked (n_periods, period, ...), (k, v) stacked or None, tail caches
+    or None))."""
+    shared = params["shared_attn"]
+    mcaches, ks, vs = [], [], []
+    for i in range(_n_stacked(params["blocks"])):
+        x, mc = _mamba_full(cfg, _layer(params["blocks"], i), x)
+        x, kv, _ = B.dense_layer_full(cfg, shared, x, positions, None)
+        mcaches.append(mc)
+        if collect:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    mcaches = tuple(torch.stack(c) for c in zip(*mcaches))
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect else None
+    tcaches = None
+    if "tail_blocks" in params:
+        x, tcaches = _mamba_full(cfg, params["tail_blocks"], x)
+    return x, (mcaches, kvs, tcaches)
+
+
+def run_hybrid_decode(cfg, params, x, cache, cur_len: int):
+    """One token through zamba2; writes every cache tensor in place."""
+    shared = params["shared_attn"]
+    states, convs = cache["mamba"]
+    for i in range(_n_stacked(params["blocks"])):
+        x = _mamba_decode(cfg, _layer(params["blocks"], i), x,
+                          (states[i], convs[i]))
+        x, _, _ = B.dense_layer_decode(cfg, shared, x, cache["k"][i],
+                                       cache["v"][i], cur_len, None)
+    if "tail_blocks" in params:
+        x = _mamba_decode(cfg, params["tail_blocks"], x, cache["tail"])
+    return x, cache
+
+
+def run_encdec_full(cfg, params, frames, dec_x, dec_positions,
+                    collect=False):
+    """The encoder (non-causal) over ``frames``, then the decoder, each
+    layer self-attention and cross-attention over the encoder's memory.
+    Returns (x, memory, ((k, v), (xk, xv)) stacked or None)."""
+    b, s_enc = frames.shape[:2]
+    enc_positions = torch.arange(s_enc, device=frames.device).expand(
+        b, s_enc)
+    x = frames
+    for i in range(_n_stacked(params["enc_blocks"])):
+        x, _, _ = B.dense_layer_full(cfg, _layer(params["enc_blocks"], i), x,
+                                     enc_positions, None, causal=False)
+    memory = apply_norm(cfg, x, params.get("enc_final_norm"))
+    x = dec_x
+    kv_caches = []
+    for i in range(_n_stacked(params["dec_blocks"])):
+        p_l = _layer(params["dec_blocks"], i)
+        x, kv, _ = B.dense_layer_full(cfg, p_l, x, dec_positions, None)
+        xo, xkv = B.cross_attention_full(cfg, p_l, x, memory)
+        x = x + xo
+        if collect:
+            kv_caches.append((*kv, *xkv))
+    caches = None
+    if collect:
+        k, v, xk, xv = (torch.stack(c) for c in zip(*kv_caches))
+        caches = ((k, v), (xk, xv))
+    return x, memory, caches
+
+
+def run_encdec_decode(cfg, params, x, cache, cur_len: int):
+    """One decoder token; reads ``xk`` / ``xv`` from the cache (never
+    recomputes them) and writes ``k`` / ``v`` in place."""
+    for i in range(_n_stacked(params["dec_blocks"])):
+        p_l = _layer(params["dec_blocks"], i)
+        x, _, _ = B.dense_layer_decode(cfg, p_l, x, cache["k"][i],
+                                       cache["v"][i], cur_len, None)
+        x = x + B.cross_attention_decode(cfg, p_l, x, cache["xk"][i],
+                                         cache["xv"][i])
+    return x, cache
+
+
 # --------------------------------------------------------------- full fwd
 def forward_full(cfg, params, batch, collect=False):
     """Returns (hidden (B,S,d), labels, caches, aux)."""
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        dec_x = embed(cfg, params, batch["dec_tokens"])
+        b, s = dec_x.shape[:2]
+        dec_positions = torch.arange(s, device=dec_x.device).expand(b, s)
+        x, memory, caches = run_encdec_full(
+            cfg, params, batch["frames"].to(cfg.param_dtype), dec_x,
+            dec_positions, collect=collect)
+        x = apply_norm(cfg, x, params.get("final_norm"))
+        return x, batch.get("labels"), (caches, memory), \
+            torch.zeros((), dtype=torch.float32, device=x.device)
+
     x, labels, positions = build_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "dense":
         x, caches, aux = run_dense_full(cfg, params["blocks"], x, positions,
                                         ffn="mlp", collect=collect)
-    else:
+    elif cfg.family == "moe" and cfg.mla:
+        x, caches, aux = run_mla_full(cfg, params, x, positions,
+                                      collect=collect)
+    elif cfg.family == "moe":
+        x, caches, aux = run_dense_full(cfg, params["blocks"], x, positions,
+                                        ffn="moe", collect=collect)
+    elif cfg.family == "ssm":
         x = apply_norm(cfg, x, params.get("ln0"))
         x, caches = run_ssm_full(cfg, params["blocks"], x)
+    elif cfg.family == "hybrid":
+        x, caches = run_hybrid_full(cfg, params, x, positions,
+                                    collect=collect)
+    else:
+        raise ValueError(cfg.family)
     x = apply_norm(cfg, x, params.get("final_norm"))
     return x, labels, caches, aux
 
@@ -234,8 +398,8 @@ def train_loss(cfg, params, batch):
 
 # ------------------------------------------------------------- serving
 def _kv_cache_from(kvs, max_len: int):
-    """Stacked per-layer (k, v) of shape (L..., B, Hkv, S, hd) -> zero-padded
-    cache buffers of length max_len."""
+    """Stacked per-layer (k, v) of shape (L..., B, Hkv, S, hd) (or MLA's
+    (L, B, S, r) latents) -> buffers zero-padded on axis -2 to max_len."""
     def pad(t):
         out = torch.zeros((*t.shape[:-2], max_len, t.shape[-1]),
                           dtype=t.dtype, device=t.device)
@@ -247,51 +411,106 @@ def _kv_cache_from(kvs, max_len: int):
 
 def init_decode_cache(cfg, batch_size: int, max_len: int, enc_len: int = 0,
                       device=None) -> Any:
-    """Zero caches (``enc_len`` is JAX's encdec argument; unused here).
+    """Zero caches (``enc_len``: the encoder memory's length, encdec only).
     ``device`` defaults to the CUDA card."""
     from ..device import resolve_device
-    _check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype
     b, L = batch_size, cfg.n_layers
     hkv, hd = cfg.n_kv_heads, cfg.d_head
-    if cfg.family == "dense":
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family == "dense" or (cfg.family == "moe" and not cfg.mla):
         if cfg.layer_pattern == "local_global":
             shape = (L // 2, 2, b, hkv, max_len, hd)
         else:
             shape = (L, b, hkv, max_len, hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
-    h = cfg.n_heads
-    dk = cfg.d_model // h
-    return (torch.zeros((L, b, cfg.d_model), dtype=dt, device=dev),
-            torch.zeros((L, b, h, dk, dk), dtype=torch.float32, device=dev),
-            torch.zeros((L, b, cfg.d_model), dtype=dt, device=dev))
+        return {"k": zeros(shape), "v": zeros(shape)}
+    if cfg.family == "moe":
+        nd, nm = cfg.first_k_dense, L - cfg.first_k_dense
+        r, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+        return {"dense_ckv": zeros((nd, b, max_len, r)),
+                "dense_krope": zeros((nd, b, max_len, rope)),
+                "ckv": zeros((nm, b, max_len, r)),
+                "krope": zeros((nm, b, max_len, rope))}
+    if cfg.family == "ssm":
+        h = cfg.n_heads
+        dk = cfg.d_model // h
+        return (zeros((L, b, cfg.d_model)),
+                zeros((L, b, h, dk, dk), torch.float32),
+                zeros((L, b, cfg.d_model)))
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        np_ = L // period
+        tail = L - np_ * period
+        h, pd, n = cfg.n_heads, cfg.d_inner // cfg.n_heads, cfg.ssm_state
+        convdim = cfg.d_inner + 2 * n
+        k1 = cfg.conv_kernel - 1
+        return {
+            "mamba": (zeros((np_, period, b, h, pd, n), torch.float32),
+                      zeros((np_, period, b, k1, convdim))),
+            "k": zeros((np_, b, hkv, max_len, hd)),
+            "v": zeros((np_, b, hkv, max_len, hd)),
+            "tail": (zeros((tail, b, h, pd, n), torch.float32),
+                     zeros((tail, b, k1, convdim))) if tail else None,
+        }
+    if cfg.family == "encdec":
+        Ld = cfg.dec_layers
+        return {"k": zeros((Ld, b, hkv, max_len, hd)),
+                "v": zeros((Ld, b, hkv, max_len, hd)),
+                "xk": zeros((Ld, b, hkv, enc_len, hd)),
+                "xv": zeros((Ld, b, hkv, enc_len, hd))}
+    raise ValueError(cfg.family)
 
 
 def prefill(cfg, params, batch, max_len: int):
     """Run the full prompt, return (last_logits (B,V) f32, cache)."""
     hidden, _, caches, _ = forward_full(cfg, params, batch, collect=True)
     logits = unembed_chunk(cfg, params, hidden[:, -1:])[:, 0]
-    if cfg.family == "dense":
+    if cfg.family == "dense" or (cfg.family == "moe" and not cfg.mla):
         k, v = _kv_cache_from(caches, max_len)
         return logits, {"k": k, "v": v}
-    return logits, caches
+    if cfg.family == "ssm":
+        return logits, caches
+    if cfg.family == "hybrid":
+        mcaches, kvs, tcaches = caches
+        k, v = _kv_cache_from(kvs, max_len)
+        return logits, {"mamba": mcaches, "k": k, "v": v, "tail": tcaches}
+    if cfg.family == "encdec":
+        (kv, xkv), _memory = caches
+        k, v = _kv_cache_from(kv, max_len)
+        return logits, {"k": k, "v": v, "xk": xkv[0], "xv": xkv[1]}
+    ckv, krope = _kv_cache_from(caches["moe"], max_len)
+    out = {"ckv": ckv, "krope": krope}
+    if "dense" in caches:
+        out["dense_ckv"], out["dense_krope"] = _kv_cache_from(
+            caches["dense"], max_len)
+    return logits, out
 
 
 def decode_step(cfg, params, cache, tokens, cur_len: int):
     """tokens: (B,) new token ids; cur_len: number of tokens already in the
     cache. Returns (logits (B,V) f32, cache), the cache updated in place."""
-    _check_family(cfg)
     cur_len = int(cur_len)
     x = embed(cfg, params, tokens[:, None])
-    if cfg.family == "dense":
-        x, kc, vc = run_dense_decode(cfg, params["blocks"], x, cache["k"],
-                                     cache["v"], cur_len)
+    if cfg.family == "encdec":
+        x, cache = run_encdec_decode(cfg, params, x, cache, cur_len)
+    elif cfg.family == "dense" or (cfg.family == "moe" and not cfg.mla):
+        x, kc, vc = run_dense_decode(
+            cfg, params["blocks"], x, cache["k"], cache["v"], cur_len,
+            ffn="moe" if cfg.family == "moe" else "mlp")
         cache = {"k": kc, "v": vc}
-    else:
+    elif cfg.family == "moe":
+        x, cache = run_mla_decode(cfg, params, x, cache, cur_len)
+    elif cfg.family == "ssm":
         x = apply_norm(cfg, x, params.get("ln0"))
         x, cache = run_ssm_decode(cfg, params["blocks"], x, cache)
+    elif cfg.family == "hybrid":
+        x, cache = run_hybrid_decode(cfg, params, x, cache, cur_len)
+    else:
+        raise ValueError(cfg.family)
     x = apply_norm(cfg, x, params.get("final_norm"))
     logits = unembed_chunk(cfg, params, x)[:, 0]
     return logits, cache

@@ -15,31 +15,27 @@ weights, normal x 0.02 for the embedding, ``u`` normal x 0.3 in float32,
 ``decay_base`` = -0.6 in float32). The numbers differ from JAX's: the
 bridge carries JAX's own parameters across where a test needs equal
 weights. Each stacked leaf is allocated once and filled layer by layer,
-so the peak is the model plus one layer.
+so the peak is the model plus one layer; zamba2's (period, layer) stack is
+filled the same way, one layer at a time.
 
-Ported families: dense and ssm (rwkv6). ``count_params_config`` covers
-every family.
+Every family: dense, moe (olmoe; deepseek-v2's MLA with a dense first
+layer of d_ff 12288 under ``dense_blocks``), ssm (rwkv6), hybrid (zamba2:
+``blocks`` stacked (n_periods, period, ...), ``tail_blocks`` and one
+unstacked ``shared_attn`` block) and encdec (seamless: ``enc_blocks``,
+``dec_blocks``, ``enc_final_norm``).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .common import dense_init, embed_init, normal_init
 from .config import ModelConfig
-
-PORTED_FAMILIES = ("dense", "ssm")
-
-
-def _unported(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family (MLA, MoE, Mamba-2 hybrid, "
-        f"encoder-decoder) waits for its modules (ROADMAP Queue 1 item 6); "
-        f"ported: {PORTED_FAMILIES}")
 
 
 def _const(shape, value, dtype, device) -> torch.Tensor:
@@ -79,6 +75,24 @@ def init_attn_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
     return p
 
 
+def init_mla_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
+    d, h = cfg.d_model, cfg.n_heads
+    dt, dev = cfg.param_dtype, gen.device
+    dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "q_a": dense_init(gen, (d, cfg.q_lora_rank), dt),
+        "q_norm": _const((cfg.q_lora_rank,), 1.0, dt, dev),
+        "q_b": dense_init(gen, (cfg.q_lora_rank, h * dqk), dt),
+        "kv_a": dense_init(gen, (d, cfg.kv_lora_rank + cfg.qk_rope_dim), dt),
+        "kv_norm": _const((cfg.kv_lora_rank,), 1.0, dt, dev),
+        "kv_b": dense_init(
+            gen, (cfg.kv_lora_rank, h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+            dt),
+        "o": dense_init(gen, (h * cfg.v_head_dim, d), dt),
+        "ln1": _const((d,), 1.0, dt, dev),
+    }
+
+
 def init_mlp_layer(cfg, gen: torch.Generator,
                    d_ff: Optional[int] = None) -> Dict[str, Any]:
     d = cfg.d_model
@@ -96,6 +110,28 @@ def init_mlp_layer(cfg, gen: torch.Generator,
         pn = _maybe_norm(cfg, d, dev)
         if pn is not None:
             p["post_ln2"] = pn
+    return p
+
+
+def init_moe_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
+    """The router in float32; expert weights (E, fan_in, fan_out) with
+    their fan-in on axis -2."""
+    d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_expert
+    dt, dev = cfg.param_dtype, gen.device
+    p = {
+        "router": dense_init(gen, (d, e), torch.float32),
+        "wg": dense_init(gen, (e, d, fe), dt, in_axis=-2),
+        "wu": dense_init(gen, (e, d, fe), dt, in_axis=-2),
+        "wd": dense_init(gen, (e, fe, d), dt, in_axis=-2),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * fe
+        p["sg"] = dense_init(gen, (d, fs), dt)
+        p["su"] = dense_init(gen, (d, fs), dt)
+        p["sd"] = dense_init(gen, (fs, d), dt)
+    n = _maybe_norm(cfg, d, dev)
+    if n is not None:
+        p["ln2"] = n
     return p
 
 
@@ -132,14 +168,49 @@ def init_rwkv_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
     return p
 
 
-def _stack_layers(n: int, make: Callable[[], Any]):
-    """Stack ``n`` per-layer trees from ``make()`` along a new axis 0. Each
-    stacked leaf is allocated once and each layer is copied in as it is
-    made, so only one layer exists beside the stack."""
+def init_mamba_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
+    """``conv_w`` with its fan-in (the kernel taps) on axis 0; ``dt_bias``,
+    ``a_log`` and ``D`` in float32."""
+    d, h, di, n = cfg.d_model, cfg.n_heads, cfg.d_inner, cfg.ssm_state
+    dt, dev = cfg.param_dtype, gen.device
+    f32 = torch.float32
+    return {
+        "ln1": _const((d,), 1.0, dt, dev),
+        "in_zx": dense_init(gen, (d, 2 * di), dt),
+        "in_bcdt": dense_init(gen, (d, 2 * n + h), dt),
+        "conv_w": dense_init(gen, (cfg.conv_kernel, di + 2 * n), dt,
+                             in_axis=0),
+        "dt_bias": _const((h,), 0.0, f32, dev),
+        "a_log": _const((h,), 0.0, f32, dev),
+        "D": _const((h,), 1.0, f32, dev),
+        "out_norm": _const((di,), 1.0, dt, dev),
+        "out_proj": dense_init(gen, (di, d), dt),
+    }
+
+
+def init_cross_attn_layer(cfg, gen: torch.Generator) -> Dict[str, Any]:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt, dev = cfg.param_dtype, gen.device
+    return {
+        "xwq": dense_init(gen, (d, hq * hd), dt),
+        "xwk": dense_init(gen, (d, hkv * hd), dt),
+        "xwv": dense_init(gen, (d, hkv * hd), dt),
+        "xwo": dense_init(gen, (hq * hd, d), dt),
+        "xln": _const((d,), 1.0, dt, dev),
+    }
+
+
+def _stack_layers(n: Union[int, Tuple[int, ...]], make: Callable[[], Any]):
+    """Stack per-layer trees from ``make()`` along new leading axes: ``n``
+    layers, or an (n_periods, period, ...) grid of them, filled in row-major
+    order. Each stacked leaf is allocated once and each layer is copied in
+    as it is made, so only one layer exists beside the stack."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
+
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
-        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        return torch.empty((*lead, *t.shape), dtype=t.dtype, device=t.device)
 
     def put(dst, src, i):
         if isinstance(src, dict):
@@ -148,14 +219,15 @@ def _stack_layers(n: int, make: Callable[[], Any]):
         else:
             dst[i].copy_(src)
 
-    if n < 1:
+    if min(lead) < 1:
         raise ValueError(f"a model needs at least one layer to stack, got "
                          f"{n}")
+    cells = itertools.product(*(range(m) for m in lead))
     first = make()
     stacked = alloc(first)
-    put(stacked, first, 0)
+    put(stacked, first, next(cells))
     del first
-    for i in range(1, n):
+    for i in cells:
         put(stacked, make(), i)
     return stacked
 
@@ -163,15 +235,12 @@ def _stack_layers(n: int, make: Callable[[], Any]):
 # -------------------------------------------------------------- full models
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
-    """The parameter tree of ``cfg`` (dense and ssm families), drawn from
-    ``generator`` on its device; ``device``, when given, must be that
-    device's kind."""
+    """The parameter tree of ``cfg``, drawn from ``generator`` on its
+    device; ``device``, when given, must be that device's kind."""
     if device is not None and torch.device(device).type \
             != generator.device.type:
         raise ValueError(f"device={device!r} but the generator is on "
                          f"{generator.device}")
-    if cfg.family not in PORTED_FAMILIES:
-        raise _unported(cfg)
     gen, dt, dev = generator, cfg.param_dtype, generator.device
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dt),
@@ -187,6 +256,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def dense_block():
         return {**init_attn_layer(cfg, gen), **init_mlp_layer(cfg, gen)}
 
+    def mamba_block():
+        return init_mamba_layer(cfg, gen)
+
     if cfg.family == "dense":
         if cfg.layer_pattern == "local_global":
             params["blocks"] = _stack_layers(
@@ -194,10 +266,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 lambda: {"local": dense_block(), "global": dense_block()})
         else:
             params["blocks"] = _stack_layers(cfg.n_layers, dense_block)
-    else:
+    elif cfg.family == "moe" and cfg.mla:
+        if cfg.first_k_dense:
+            # HF deepseek-v2: the dense first layer has d_ff 12288
+            params["dense_blocks"] = _stack_layers(
+                cfg.first_k_dense,
+                lambda: {**init_mla_layer(cfg, gen),
+                         **init_mlp_layer(cfg, gen, d_ff=12288)})
+        params["blocks"] = _stack_layers(
+            cfg.n_layers - cfg.first_k_dense,
+            lambda: {**init_mla_layer(cfg, gen), **init_moe_layer(cfg, gen)})
+    elif cfg.family == "moe":
+        params["blocks"] = _stack_layers(
+            cfg.n_layers,
+            lambda: {**init_attn_layer(cfg, gen), **init_moe_layer(cfg, gen)})
+    elif cfg.family == "ssm":
         params["blocks"] = _stack_layers(
             cfg.n_layers, lambda: init_rwkv_layer(cfg, gen))
         params["ln0"] = _const((cfg.d_model,), 1.0, dt, dev)
+    elif cfg.family == "hybrid":
+        period = cfg.attn_every
+        n_periods = cfg.n_layers // period
+        tail = cfg.n_layers - n_periods * period
+        params["blocks"] = _stack_layers((n_periods, period), mamba_block)
+        if tail:
+            params["tail_blocks"] = _stack_layers(tail, mamba_block)
+        params["shared_attn"] = dense_block()
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = _stack_layers(cfg.enc_layers, dense_block)
+        params["dec_blocks"] = _stack_layers(
+            cfg.dec_layers,
+            lambda: {**init_attn_layer(cfg, gen),
+                     **init_cross_attn_layer(cfg, gen),
+                     **init_mlp_layer(cfg, gen)})
+        params["enc_final_norm"] = _const((cfg.d_model,), 1.0, dt, dev)
+    else:
+        raise ValueError(cfg.family)
     return params
 
 
@@ -208,8 +312,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     arrives as an ``ml_dtypes`` array, which ``torch`` does not take; it
     goes through float32, which holds every bfloat16 value exactly."""
     from ..device import resolve_device
-    if cfg.family not in PORTED_FAMILIES:
-        raise _unported(cfg)
     dev = resolve_device(device)
 
     def conv(a):

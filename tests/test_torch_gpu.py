@@ -20,7 +20,7 @@ from repro_torch.dkv import DkvClient, DkvService
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    MMA_TILE, flash_attention_cuda)
+    MMA_TILE, flash_attention_cuda, flash_route)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref, wkv_sequential
@@ -767,6 +767,42 @@ def test_flash_mma_row_with_all_visited_keys_masked(cuda, causal):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("b,hq,sq,skv,d,causal,dtype,v_cols", [
+    (4, 16, 512, 512, 128, True, torch.bfloat16, None),      # olmoe
+    (1, 128, 512, 512, 192, True, torch.bfloat16, 128),      # MLA
+    (4, 16, 512, 512, 64, False, torch.bfloat16, None),      # seamless x
+    (4, 16, 512, 1000, 64, False, torch.bfloat16, None),
+    (4, 16, 512, 512, 64, False, torch.float32, None),
+    (4, 16, 512, 1000, 64, False, torch.float32, None),
+    (4, 128, 512, 512, 192, True, torch.bfloat16, 128),      # MLA served
+    (4, 32, 512, 512, 64, True, torch.bfloat16, None),       # zamba2
+    (4, 16, 512, 512, 64, True, torch.bfloat16, None),       # seamless dec
+])
+def test_flash_at_the_new_families_shapes(fp32_cuda, b, hq, sq, skv, d,
+                                          causal, dtype, v_cols):
+    """chip_smoke.py's new FLASH_CASES and the prefill shapes of
+    FLASH_MODEL_SHAPES that no FLASH_CASES case has, each on the route
+    flash_route picks (bf16 D <= 128 on the tensor cores; float32 and bf16
+    D = 192 on the CUDA cores); MLA's v zero-padded from 128 to 192
+    columns gives output columns 128-191 of exactly 0."""
+    g = torch.Generator("cpu").manual_seed(sq + skv + d)
+    q, k, v = ((torch.randn(sh, generator=g) * 1.5).to(fp32_cuda, dtype)
+               for sh in ((b, hq, sq, d), (b, hq, skv, d), (b, hq, skv, d)))
+    if v_cols:
+        v[..., v_cols:] = 0
+    _build.launches.clear()
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {flash_route(dtype, d): 1}
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float(want.float().abs().mean()) > tol
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if v_cols:
+        assert not got[..., v_cols:].any()
+
+
 def test_flash_routes_by_dtype_and_head_dim(fp32_cuda):
     """bf16 up to D = 128 on the tensor cores, float32 and bf16 D = 256 on
     the CUDA cores."""
@@ -898,31 +934,45 @@ def test_wkv_routes_by_shape(cuda):
 # --------------------------------------------------- models through kernels
 @pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmo_1b", "phi3_mini_3_8b",
                                   "gemma2_2b", "llava_next_mistral_7b",
-                                  "rwkv6_7b"])
+                                  "rwkv6_7b", "olmoe_1b_7b",
+                                  "deepseek_v2_236b", "zamba2_1_2b",
+                                  "seamless_m4t_medium"])
 def test_smoke_models_through_kernels_equal_plain(fp32_cuda, arch):
     """forward_full, prefill and decode on the card (the kernels) against
     the same float32 parameters on the CPU (the plain versions), with the
-    launches of each step counted."""
+    launches of each step counted: one a layer, zamba2's shared block once
+    a period, seamless's encoder, decoder and cross-attention layers. MoE
+    at the no-drop capacity of the consistency test (a token's routing
+    then does not depend on the others')."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1000.0)
     params = init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
     gparams = _to(params, fp32_cuda)
     rng = np.random.default_rng(1)
     n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
-    batch = {"tokens": torch.from_numpy(
+    key = "dec_tokens" if cfg.family == "encdec" else "tokens"
+    batch = {key: torch.from_numpy(
         rng.integers(0, cfg.vocab, (2, 48 - n_img)).astype(np.int32))}
     if n_img:
         batch["vision_embeds"] = torch.from_numpy(
             rng.standard_normal((2, n_img, 1024)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32))
     gbatch = {k: v.to(fp32_cuda) for k, v in batch.items()}
     kernel = "wkv" if cfg.family == "ssm" else "flash_attention"
+    calls = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+             "encdec": cfg.enc_layers + 2 * cfg.dec_layers}.get(
+        cfg.family, cfg.n_layers)
     _build.launches.clear()
     hidden = forward_full(cfg, gparams, gbatch)[0]
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {kernel: cfg.n_layers}
+    assert dict(_build.launches) == {kernel: calls}
     torch.testing.assert_close(hidden.cpu(),
                                forward_full(cfg, params, batch)[0],
                                atol=1e-4, rtol=1e-4)
-    pre = dict(batch, tokens=batch["tokens"][:, :32 - n_img])
+    pre = dict(batch, **{key: batch[key][:, :32 - n_img]})
     gpre = {k: v.to(fp32_cuda) for k, v in pre.items()}
     logits, cache = prefill(cfg, gparams, gpre, 64)
     want_logits, want_cache = prefill(cfg, params, pre, 64)
@@ -930,7 +980,7 @@ def test_smoke_models_through_kernels_equal_plain(fp32_cuda, arch):
                                rtol=1e-4)
     _build.launches.clear()
     for t in range(4):
-        tok = batch["tokens"][:, 32 - n_img + t]
+        tok = batch[key][:, 32 - n_img + t]
         logits, cache = decode_step(cfg, gparams, cache, tok.to(fp32_cuda),
                                     32 + t)
         want_logits, want_cache = decode_step(cfg, params, want_cache, tok,

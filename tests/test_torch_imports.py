@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.rwkv6.ops\n"
             "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models.moe, repro_torch.models.mla\n"
+            "import repro_torch.models.mamba2\n"
             "import repro_torch.elastic, repro_torch.launch.steps\n"
             "import repro_torch.launch.serve\n"
             "from repro_torch.configs import all_archs, get_config\n"

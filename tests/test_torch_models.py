@@ -1,11 +1,13 @@
 """The port's models against the JAX package on the CPU, at smoke size.
 
-Every arch of the dense and ssm families in ``all_archs()`` (qwen2, olmo,
-phi3, gemma2, llava's text model with its vision stub, rwkv6): JAX's own
-``init_params`` output crosses to the port through ``params_from_numpy``,
-the same seeded batch goes to both, and ``forward_full``, ``prefill`` (its
-logits and cache) and 8 ``decode_step``s must agree at 1e-4 in float32
-and at the reference's 3e-2 in bfloat16.
+Every arch in ``all_archs()``: JAX's own ``init_params`` output crosses to
+the port through ``params_from_numpy``, the same seeded batch goes to both,
+and ``forward_full``, ``prefill`` (its logits and cache) and 8
+``decode_step``s must agree at 1e-4 in float32 and at the reference's 3e-2
+in bfloat16. The text-only dense archs are checked here; llava, rwkv6 and
+the moe, MLA, Mamba-2 hybrid and encoder-decoder families have files of
+their own (``test_torch_models_*.py``), so that the parallel test workers
+share the JAX compile time.
 
 JAX runs op by op here (no ``jit``, ``scan_layers=False``): under ``jit``
 XLA fuses elementwise chains and skips some of the bfloat16 roundings that
@@ -35,16 +37,18 @@ from repro_torch import configs as tconfigs
 from repro_torch import models as tm
 from repro_torch.models.model import unembed_chunk
 
-PORTED = [a for a in jconfigs.all_archs()
-          if jconfigs.get_smoke_config(a).family in ("dense", "ssm")]
+PORTED = jconfigs.all_archs()
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
-def test_every_dense_and_ssm_arch_is_covered():
-    assert sorted(PORTED) == sorted(["llava_next_mistral_7b",
-                                     "phi3_mini_3_8b", "gemma2_2b",
-                                     "qwen2_0_5b", "olmo_1b", "rwkv6_7b"])
+def test_every_arch_is_covered():
+    assert sorted(PORTED) == sorted([
+        "llava_next_mistral_7b", "phi3_mini_3_8b", "gemma2_2b", "qwen2_0_5b",
+        "olmo_1b", "rwkv6_7b", "seamless_m4t_medium", "olmoe_1b_7b",
+        "deepseek_v2_236b", "zamba2_1_2b"])
     assert tconfigs.all_archs() == jconfigs.all_archs()
+    families = {tconfigs.get_smoke_config(a).family for a in PORTED}
+    assert families == {"dense", "moe", "ssm", "hybrid", "encdec"}
 
 
 def _configs(arch, dtype):
@@ -54,12 +58,22 @@ def _configs(arch, dtype):
     return jcfg, tcfg
 
 
+#: encoder frames of the encdec batches (the reference test's 32)
+ENC_LEN = 32
+
+
 def _batch(cfg, b, s, seed=3, onehot_vision=False):
-    """Tokens (and, for the vision stub, patch embeddings) from a seed.
+    """Tokens (and, for the vision stub, patch embeddings; for encdec,
+    ``ENC_LEN`` float32 frames and ``s`` decoder tokens) from a seed.
     ``onehot_vision``: each patch embedding is one scaled unit vector, so
     its float32 projection is exact whatever the summation order (see
     ``test_torch_models_llava.py``)."""
     rng = np.random.RandomState(seed)
+    if cfg.family == "encdec":
+        return {"frames": rng.randn(b, ENC_LEN, cfg.d_model)
+                .astype(np.float32),
+                "dec_tokens": rng.randint(0, cfg.vocab, (b, s))
+                .astype(np.int32)}
     n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
     batch = {"tokens": rng.randint(0, cfg.vocab, (b, s - n_img))
              .astype(np.int32)}
@@ -95,10 +109,20 @@ def _close(got, want, tol, what):
                                rtol=tol, err_msg=what)
 
 
+def _tokens_key(cfg):
+    return "dec_tokens" if cfg.family == "encdec" else "tokens"
+
+
 def _cache_leaves(cache):
+    """The cache's tensors in ``jax.tree_util.tree_leaves`` order (dict keys
+    sorted, tuples in order, None skipped)."""
+    if cache is None:
+        return []
     if isinstance(cache, dict):
-        return [cache["k"], cache["v"]]
-    return list(cache)
+        return [t for k in sorted(cache) for t in _cache_leaves(cache[k])]
+    if isinstance(cache, (tuple, list)):
+        return [t for c in cache for t in _cache_leaves(c)]
+    return [cache]
 
 
 def check_forward_prefill_decode(arch, dtype, onehot_vision=None,
@@ -118,13 +142,16 @@ def check_forward_prefill_decode(arch, dtype, onehot_vision=None,
         onehot_vision = dtype == "bfloat16"
     b, s, cut, max_len = 2, 32, 16, 48
     full = _batch(jcfg, b, s, onehot_vision=onehot_vision)
-    hidden = jm.forward_full(jcfg, jp, _j(full))[0]
-    got = tm.forward_full(tcfg, tp, _t(full))[0]
+    hidden, _, _, jaux = jm.forward_full(jcfg, jp, _j(full))
+    got, _, _, aux = tm.forward_full(tcfg, tp, _t(full))
     assert got.dtype == tcfg.param_dtype
     _close(got, hidden, tol, f"{arch} forward_full")
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    _close(aux, jaux, tol, f"{arch} forward_full aux")
 
     n_img = jcfg.n_frontend_tokens if jcfg.frontend == "vision" else 0
-    pre = dict(full, tokens=full["tokens"][:, :cut - n_img])
+    key = _tokens_key(jcfg)
+    pre = dict(full, **{key: full[key][:, :cut - n_img]})
     jl, jc = jm.prefill(jcfg, jp, _j(pre), max_len)
     tl, tc = tm.prefill(tcfg, tp, _t(pre), max_len)
     assert tl.dtype == torch.float32 and tl.shape == (b, tcfg.vocab)
@@ -136,7 +163,7 @@ def check_forward_prefill_decode(arch, dtype, onehot_vision=None,
     for jl_, tl_ in zip(jleaves, tleaves):
         _close(tl_, jl_, tol, f"{arch} prefill cache")
 
-    rest = full["tokens"][:, cut - n_img:cut - n_img + 8]
+    rest = full[key][:, cut - n_img:cut - n_img + 8]
     cur = cut
     for t in range(rest.shape[1]):
         tok = rest[:, t]
@@ -144,7 +171,9 @@ def check_forward_prefill_decode(arch, dtype, onehot_vision=None,
         tl, tc = tm.decode_step(tcfg, tp, tc, torch.from_numpy(tok), cur)
         _close(tl, jl, tol, f"{arch} decode step {t}")
         cur += 1
-    for jl_, tl_ in zip(jax.tree_util.tree_leaves(jc), _cache_leaves(tc)):
+    jleaves, tleaves = jax.tree_util.tree_leaves(jc), _cache_leaves(tc)
+    assert len(jleaves) == len(tleaves)
+    for jl_, tl_ in zip(jleaves, tleaves):
         _close(tl_, jl_, tol, f"{arch} cache after decode")
 
 
@@ -158,12 +187,26 @@ def test_forward_prefill_decode_match_jax(arch, dtype):
     check_forward_prefill_decode(arch, dtype)
 
 
+def consistency_config(arch, dtype):
+    """The port's config of ``arch`` for the prefill->decode consistency,
+    with the reference test's settings (``tests/test_models.py:89-99``): a
+    no-drop capacity for MoE (capacity dropping depends on the batch's
+    size by construction) and MLA in float32 (the absorbed decode
+    reassociates the q/k products)."""
+    _, cfg = _configs(arch, dtype)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1000.0)
+    if cfg.mla:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    return cfg
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_decode_consistency(arch, dtype):
     """decode (tokens one by one) reproduces the teacher-forced logits of
     ``forward_full``: the port of ``tests/test_models.py:86``."""
-    _, cfg = _configs(arch, dtype)
+    cfg = consistency_config(arch, dtype)
     gen = torch.Generator("cpu").manual_seed(0)
     params = tm.init_params(cfg, gen, "cpu")
     b, s, max_len = 1, 32, 64
@@ -171,12 +214,13 @@ def test_prefill_decode_consistency(arch, dtype):
     hidden = tm.forward_full(cfg, params, batch)[0]
     full_logits = unembed_chunk(cfg, params, hidden)
     cut = s // 2
-    pre = dict(batch, tokens=batch["tokens"][:, :cut])
-    rest = batch["tokens"][:, cut:]
+    key = _tokens_key(cfg)
+    pre = dict(batch, **{key: batch[key][:, :cut]})
+    rest = batch[key][:, cut:]
     logits0, cache = tm.prefill(cfg, params, pre, max_len)
     n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
     pos0 = cut + n_img
-    tol = TOL[dtype] if dtype == "bfloat16" else 1e-4
+    tol = TOL[dtype] if cfg.dtype == "bfloat16" else 1e-4
     _close(logits0, full_logits[:, pos0 - 1], tol, f"{arch} prefill")
     cur = pos0
     for t in range(rest.shape[1] - 1):
@@ -235,15 +279,27 @@ def test_init_params_tree_matches_jax(arch):
         assert np.abs(x).max() <= np.abs(a).max() * 1.6 + 1e-6, key
 
 
-def test_unported_families_raise():
-    gen = torch.Generator("cpu").manual_seed(0)
-    for arch in ("olmoe_1b_7b", "deepseek_v2_236b", "zamba2_1_2b",
-                 "seamless_m4t_medium"):
-        cfg = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.init_params(cfg, gen, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.init_decode_cache(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", PORTED)
+def test_decode_step_shapes_from_zero_caches(arch):
+    """The port of ``tests/test_models.py::test_decode_step_shapes``:
+    ``decode_step`` from ``init_decode_cache`` (encoder memory of 32) at
+    cur_len 5 gives finite (2, vocab) logits and a cache of JAX's tree,
+    shapes and dtypes, for every family."""
+    jcfg, cfg = _configs(arch, "bfloat16")
+    params = tm.init_params(cfg, torch.Generator("cpu").manual_seed(0),
+                            "cpu")
+    cache = tm.init_decode_cache(cfg, 2, 96, enc_len=32, device="cpu")
+    want = jax.tree_util.tree_leaves(jax.eval_shape(
+        lambda: jm.init_decode_cache(jcfg, 2, 96, enc_len=32)))
+    leaves = _cache_leaves(cache)
+    assert [(tuple(t.shape), str(t.dtype).split(".")[1]) for t in leaves] \
+        == [(l.shape, str(l.dtype)) for l in want]
+    logits, cache2 = tm.decode_step(cfg, params, cache,
+                                    torch.zeros((2,), dtype=torch.int32), 5)
+    assert logits.shape == (2, cfg.vocab) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    assert [t.shape for t in _cache_leaves(cache2)] == \
+        [t.shape for t in leaves]
 
 
 def test_bridge_keeps_bf16_exact_and_train_loss_matches():

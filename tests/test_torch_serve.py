@@ -31,7 +31,11 @@ from repro_torch.elastic import ExecutablePool
 from repro_torch.launch import serve, steps
 
 ROOT = Path(__file__).resolve().parent.parent
-ARCHS = ["qwen2_0_5b", "rwkv6_7b", "gemma2_2b"]
+ARCHS = ["qwen2_0_5b", "rwkv6_7b", "gemma2_2b", "olmoe_1b_7b",
+         "deepseek_v2_236b", "zamba2_1_2b", "seamless_m4t_medium"]
+#: chip_smoke's consistency lengths at smoke size: zamba2's prefill and
+#: forward pass scan whole 64-token chunks (``ssd_chunked``)
+REHEARSAL_LENGTHS = {"zamba2_1_2b": dict(s=128, cut=64)}
 
 
 def _bridged(arch):
@@ -88,8 +92,10 @@ def test_prefill_then_decode_steps_match_jax(arch):
         tok = np.argmax(np.asarray(jl), -1).astype(np.int32)
 
 
-def test_serve_main_on_the_cpu(capsys):
-    serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "zamba2-1.2b",
+                                  "seamless-m4t-medium"])
+def test_serve_main_on_the_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                 "--steps", "2", "--slots", "2", "--max-len", "16"])
     out = capsys.readouterr().out
     assert "replica 0" in out and "(cold start)" in out
@@ -104,22 +110,45 @@ def test_serve_defaults_to_the_card():
         serve.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "rwkv6_7b", "gemma2_2b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_chip_smoke_serving_phases_rehearsed_on_cpu(arch):
     """``chip_smoke.py``'s serving and consistency phases, at smoke size on
-    the CPU (no kernel launches there: the plain versions run)."""
+    the CPU (no kernel launches there: the plain versions run), each arch
+    with the settings its phase gives it."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    cfg = tconfigs.get_smoke_config(arch)
     r = cs.serve_model("cpu", arch=arch, batch=2, prompt=32, max_len=64,
                        decode_steps=3, worker_steps=2, seed=0,
                        config=tconfigs.get_smoke_config)
     assert r["prefill_launches"] == {} and r["decode_launches"] == {}
     assert r["prefill_ms"] > 0 and r["decode_ms_per_step"] > 0
     assert r["prefill_profile"]["idle_share"] is None    # no device spans
-    c = cs.consistency("cpu", arch=arch, s=48, cut=32, tol=1e-3, seed=1,
-                       config=tconfigs.get_smoke_config)
+    assert r["n_layers"] == cfg.n_layers and r["reduced"] is None
+    lengths = REHEARSAL_LENGTHS.get(arch, dict(s=48, cut=32))
+    c = cs.consistency("cpu", arch=arch, tol=1e-3, seed=1,
+                       config=tconfigs.get_smoke_config, **lengths)
     assert c["max_abs_err"] < 1e-4
+    if cfg.n_experts:
+        assert c["routing"]["decisions"] > 0
     with pytest.raises(cs.PhaseError, match="out of tolerance"):
         cs._within(torch.ones(3), torch.zeros(3), 1e-3, 1e-3, "probe")
+
+
+def test_chip_smoke_depth_cut_is_reported():
+    """A serving phase at fewer layers than the config's (deepseek's on
+    one card) runs the cut model and says so."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    r = cs.serve_model("cpu", arch="deepseek_v2_236b", batch=2, prompt=32,
+                       max_len=48, decode_steps=2, worker_steps=1, seed=0,
+                       n_layers=2, config=tconfigs.get_smoke_config)
+    assert r["n_layers"] == 2
+    assert r["reduced"] == "n_layers 3 -> 2"
+    assert r["n_params"] < tm.count_params(tm.init_params(
+        tconfigs.get_smoke_config("deepseek_v2_236b"),
+        torch.Generator("cpu").manual_seed(0), "cpu"))
