@@ -2,8 +2,10 @@
 """Drive the PyTorch port's device paths on one CUDA card: the device
 RACE-table lookup, the serverless chain hop, model serving (prefill and
 decode) for qwen2-0.5b, rwkv6-7b, olmoe-1b-7b, deepseek-v2-236b (4 of its
-60 layers), zamba2-1.2b and seamless-m4t-medium, and the elastic KV service
-(dkv) with its device shard map; then the invocation gateway on the host.
+60 layers), zamba2-1.2b and seamless-m4t-medium, training (qwen2-0.5b at full
+size, rwkv6-7b at full width and 4 of its 32 layers, with a checkpoint and a
+resume), and the elastic KV service (dkv) with its device shard map; then the
+invocation gateway on the host.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -161,7 +163,51 @@ plain version):
     lookup kernels (sharded, which the tiled routes launch at one shard,
     and scalar) and ``chunk_gather_byval`` have a 0-byte stack frame and no
     spills.
-11. Elastic KV path (``repro_torch.dkv`` over the simulated fabric):
+11. Training path. First the kernels' autograd ``Function``s at the train
+    shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
+    train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
+    causal; ``flash_attention`` in float32 at (1, 14, 512, 64), causal and
+    with a window, a softcap, ``kv_len`` and ``q0 > 0``; ``wkv_split`` at
+    (2, 64, 1,024, 64) with bf16 r/k/v views and float32 logw from a
+    non-zero state, cotangents on ``o`` and the final state. The forward
+    (the kernel, the route checked) against the plain version at 2e-2
+    (bf16) / 2e-5 (float32), and the gradients of a seeded random cotangent
+    against the plain version's own autograd gradients, bit for bit (the
+    backward recomputes through that same function); then, at the models'
+    shapes, each forward's and each backward's (the plain recompute's)
+    device time. Then ``make_train_step`` (lr 3e-4) on ``SyntheticLM``
+    batches through ``make_batch_iterator`` onto the card, parameters drawn
+    on the card from seed 0, bf16 (the configs' dtype), each model freed
+    before the next: qwen2-0.5b at full size (remat "block"), 4 x 4,096
+    tokens a step (``train_4k``'s global batch of 256 cut to 4, printed as
+    ``reduced``), 8 steps, ``save_async`` of (params, AdamWState) after step
+    4 and ``wait``, then step 4 restored into a freshly drawn template (bit
+    for bit the saved tree: params, mu, nu, step) and steps 5-8 taken again;
+    rwkv6-7b at full width and 4 of its 32 layers (``reduced``: all 32 with
+    float32 moments need ~91 GB), its grad_accum of 2, 4 x 1,024 tokens a
+    step, 4 steps. The phase runs in a process of its own
+    (``chip_smoke.py --train``, started by the script) with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which cuBLAS needs under
+    ``torch.use_deterministic_algorithms`` and which makes every cuBLAS
+    call slower on the host, so the other phases run without it; the steps
+    run under ``torch.use_deterministic_algorithms(True, warn_only=True)``.
+    Gates: the
+    gradients of one batch are finite and not all zero in every leaf; every
+    loss is finite; qwen2's mean loss of steps 6-8 lies below step 1's; the
+    resumed losses equal the straight run's bit for bit when no op warned of
+    a missing deterministic implementation (else within 1e-3 relative, and
+    the print names the ops); each step launches exactly what the code
+    implies (``train_launches``): the forward's kernel calls once a
+    microbatch and once more where remat reruns the layer in the backward,
+    so 48 ``flash_attention_mma`` (qwen2: 24 + 24) and 16 ``wkv_split``
+    (rwkv6: 4 layers x 2 microbatches x 2) and nothing else (the backward's
+    recompute launches no kernel). Printed: the step time (median of steps
+    2-8, host clock ending in a synchronize) and tokens/s, the card's busy
+    time and idle share over one more step with the top device functions
+    (``torch.profiler``), the peak allocated memory, the share of the step
+    spent in the backward's plain recompute (recomputes a step x the
+    recompute's device time / the step time), and the phase's wall time.
+12. Elastic KV path (``repro_torch.dkv`` over the simulated fabric):
     ``DkvService`` on 3 memory nodes and 4 compute nodes, 8 shards x
     131,071 buckets x 8 slots (128 MiB of simulated store; the
     full-suite layout of ``benchmarks/elastic_kv.py``'s bootstrap suite,
@@ -186,16 +232,17 @@ plain version):
     spike wait-p99 >= 20% below verbs. Simulated times are the cost
     model's microseconds, not times on any chip; the host wall times of
     seeding, simulation and mirroring are printed beside them.
-12. Gateway (host only, launches no kernel, checked): the trace cells of
+13. Gateway (host only, launches no kernel, checked): the trace cells of
     ``benchmarks/serverless.py`` (4 nodes, 200,000 us, 400/s; Poisson,
     spike and diurnal traces, seeds 1-3), its closed-loop response cell (2
     nodes, 120,000 us, 150/s, a x8 spike over 20% of the run) and the
     worker-pull case of ``tests/test_dkv.py``; gates of its
     ``check_gates``: no invocation dropped, invocations in the spike
     window.
-13. A ``{"kernels": [...]}`` line with every C entry point (its launches
+14. A ``{"kernels": [...]}`` line with every C entry point (its launches
     are those of every main-path run above: lookups, chain hops, prefills,
-    the float32 consistency prefills and the dkv mirror's lookups; each
+    the float32 consistency prefills, the train steps and the dkv mirror's
+    lookups; each
     entry point but ``wkv`` and the device route of ``chunk_gather`` must
     have launched there), then as the last line ``{"ok": true, "device":
     {...}}``.
@@ -204,17 +251,21 @@ plain version):
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import itertools
 import math
 import json
+import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -223,7 +274,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint import (  # noqa: E402
+    CheckpointManager, restore_checkpoint)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import SyntheticLM, make_batch_iterator  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     VerbsProcess, WorkRequest, make_cluster)
 from repro_torch.dkv import (  # noqa: E402
@@ -247,6 +301,7 @@ from repro_torch.kernels.serverless_stage.ref import (  # noqa: E402
 from repro_torch.kernels.serverless_stage.stage import (  # noqa: E402
     BYVAL_CAP as GATHER_CAP, CHUNK, ROUTES as GATHER_ROUTES,
     chunk_gather_cuda, gather_route)
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
     wkv_chunked_ref, wkv_sequential)
 from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda, wkv_route  # noqa: E402
@@ -255,10 +310,12 @@ from repro_torch.kvs.race import (  # noqa: E402
     query_hashes, query_shards)
 from repro_torch.launch.serve import ServingWorker  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
-    make_decode_step, make_prefill_step)
+    make_decode_step, make_prefill_step, make_train_step)
 from repro_torch.models import (  # noqa: E402
-    count_params, count_params_config, decode_step, forward_full,
-    init_params, prefill)
+    TRAIN_4K, count_params, count_params_config, decode_step, forward_full,
+    init_params, prefill, train_loss, trainable)
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.model import unembed_chunk  # noqa: E402
 from repro_torch.serverless import (  # noqa: E402
     ChainRunner, ContainerPool, InvocationGateway, decode_slab,
@@ -361,6 +418,24 @@ CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
 #: decode is a fault unless the probabilities of the k-th and the
 #: (k+1)-th expert lie closer than this (float32 rounding of the logits)
 ROUTING_TIE = 1e-4
+#: the training path: qwen2-0.5b at full size (bf16, its remat "block"),
+#: 4 x 4,096 tokens a step (``train_4k``'s global batch of 256 cut to 4, to
+#: fit one card and the run's time), 8 steps, a checkpoint after step 4 and
+#: steps 5-8 again from it; rwkv6-7b at full width, 4 of its 32 layers (all
+#: 32 with float32 moments need ~7.6 G x 12 B = 91 GB), its grad_accum of 2,
+#: 4 x 1,024 tokens a step (two microbatches of 2), 4 steps
+TRAIN_SIZE = (dict(arch="qwen2_0_5b", batch=4, seq=4096, steps=8,
+                   resume_at=4, descent=True, route="flash_attention_mma"),
+              dict(arch="rwkv6_7b", batch=4, seq=1024, steps=4,
+                   route="wkv_split", n_layers=4))
+#: where the train phase writes its checkpoint and its results (removed
+#: after the phase)
+TRAIN_CKPT_DIR = ROOT / "_train_ckpt"
+#: what cuBLAS needs to be reproducible under
+#: ``torch.use_deterministic_algorithms``: read when a process makes its
+#: first cuBLAS handle, and it makes every cuBLAS call slower on the host,
+#: so only the train phase's own process sets it
+TRAIN_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 #: the elastic KV path: bench_bootstrap's full-suite layout of
 #: ``benchmarks/elastic_kv.py`` (3 memory nodes, 4 compute nodes, 8 shards,
 #: 24 workers) with 131,071 buckets a shard (prime, see phase 4), 1,000,000
@@ -1694,17 +1769,6 @@ def _expected_cache(cfg, batch: int, max_len: int, enc_len: int = 0
     return [((*lead, *kv), dt), ((*lead, *kv), dt)]
 
 
-def _leaves(cache) -> list:
-    """The cache's tensors in ``jax.tree_util.tree_leaves`` order."""
-    if cache is None:
-        return []
-    if isinstance(cache, dict):
-        return [t for k in sorted(cache) for t in _leaves(cache[k])]
-    if isinstance(cache, (tuple, list)):
-        return [t for c in cache for t in _leaves(c)]
-    return [cache]
-
-
 def attn_calls(cfg) -> int:
     """Full-sequence kernel calls of one ``forward_full`` / ``prefill``:
     one a layer (dense, moe, MLA; rwkv6's WKV), zamba2's shared block once
@@ -1870,7 +1934,7 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
           and bool(torch.isfinite(logits).all()),
           f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}, "
           f"finite {bool(torch.isfinite(logits).all())}")
-    got = [(tuple(t.shape), t.dtype) for t in _leaves(cache)]
+    got = [(tuple(t.shape), t.dtype) for t in tree_leaves(cache)]
     want = _expected_cache(cfg, batch, max_len, enc_len=prompt)
     check(got == want, f"{arch} cache {got} != JAX's {want}")
 
@@ -2383,7 +2447,359 @@ def ptxas_phase() -> dict:
     return out
 
 
-# ------------------------------------------------ 11. elastic KV (dkv) path
+# ------------------------------------------------------- 11. training path
+def train_launches(cfg) -> int:
+    """Kernel launches of one train step: each forward's (``attn_calls``)
+    once a microbatch, and once more where remat reruns the layer in the
+    backward. The backward itself launches nothing: the kernels' autograd
+    ``Function``s recompute through the plain versions."""
+    rerun = 1 if cfg.remat == "none" else 2
+    return attn_calls(cfg) * max(cfg.grad_accum, 1) * rerun
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` (with
+    uninitialised memory left unfilled, as outside the mode); yields a list
+    that receives, on exit, the warning of every op that ran without a
+    deterministic implementation (empty: the run was deterministic)."""
+    seen: list = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            yield seen
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+            seen.extend(sorted({str(w.message)[:200] for w in caught
+                                if "determinis" in str(w.message)}))
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach(), b.detach()
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def _train_steps(step_fn, params, opt, batches, device, after=None):
+    """Run ``step_fn`` over ``batches``; each step's launches counted from
+    0 just before it and read just after, its host time ending in a
+    synchronize. ``after(step, params, opt)`` runs after each step."""
+    losses, walls, launches = [], [], []
+    for i, batch in enumerate(batches, 1):
+        _sync(device)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        loss, params, opt = step_fn(params, opt, batch)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(_build.launches))
+        losses.append(loss)
+        if after is not None:
+            after(i, params, opt)
+    return [float(x) for x in losses], walls, launches, params, opt
+
+
+def _batches(cfg, seq, batch, seed, start, n, device):
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=seed)
+    data.seek(start)
+    return make_batch_iterator(itertools.islice(data, n), device=device)
+
+
+def train_model(device, *, arch, batch, seq, steps, route, resume_at=None,
+                descent=False, n_layers=None, seed=0, ckpt_dir=None,
+                config=get_config) -> dict:
+    """One published model at full width in its dtype (bf16), parameters
+    drawn on ``device`` from ``seed``: the gradients of one batch (every
+    leaf finite and not all zero), then ``steps`` steps of
+    ``make_train_step`` (its default lr) on ``SyntheticLM`` batches of
+    ``batch`` x ``seq`` through ``make_batch_iterator``; each step must
+    launch exactly ``route`` ``train_launches(cfg)`` times and nothing
+    else, and every loss be finite. With ``resume_at``: ``save_async`` of
+    (params, AdamWState) after that step, then ``wait``; after the run,
+    restore it into a freshly drawn template (bit for bit equal to the
+    saved tree) and take the remaining steps again from there: the losses
+    equal the straight run's, bit for bit when the steps ran under
+    ``torch.use_deterministic_algorithms`` with no warning, else within 1e-3
+    relative. With ``descent``: the mean loss of the last three steps lies
+    below the first step's. Then one more step under ``torch.profiler``."""
+    cfg, reduced = _cut(config(arch), n_layers)
+    cuts = [f"global batch {TRAIN_4K.global_batch} -> {batch}"] \
+        + ([reduced] if reduced else [])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    accum = max(cfg.grad_accum, 1)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device)
+                         .manual_seed(seed), device)
+    opt = adamw_init(params)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    step_fn = make_train_step(cfg)
+    want = {route: train_launches(cfg)} if on_card else {}
+
+    first = next(iter(_batches(cfg, seq, batch, seed, 0, 1, device)))
+    mb = {k: t[:batch // accum] for k, t in first.items()}
+    leaves = tree_leaves(trainable(params))
+    grads = torch.autograd.grad(train_loss(cfg, params, mb), leaves)
+    bad = [i for i, g in enumerate(grads)
+           if not (bool(torch.isfinite(g.float()).all()) and bool(g.any()))]
+    check(not bad, f"{arch}: gradient leaves {bad} of {len(grads)} are not "
+          f"finite or all zero")
+    del grads, first, mb
+
+    saved, timing = {}, {}
+    manager = CheckpointManager(ckpt_dir) if resume_at else None
+
+    def after(step, params, opt):
+        if step != resume_at:
+            return
+        with torch.no_grad():
+            saved["tree"] = tree_map(torch.clone, (params, opt))
+        t0 = time.perf_counter()
+        manager.save_async(step, (params, opt), {"arch": arch})
+        timing["save_async_ms"] = (time.perf_counter() - t0) * 1e3
+        manager.wait()
+        timing["save_total_ms"] = (time.perf_counter() - t0) * 1e3
+
+    with _deterministic() as nondeterministic:
+        losses, walls, launches, params, opt = _train_steps(
+            step_fn, params, opt,
+            _batches(cfg, seq, batch, seed, 0, steps, device), device, after)
+        resumed = None
+        if resume_at:
+            fresh = init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(seed + 1), device)
+            t0 = time.perf_counter()
+            step, (rp, ropt), meta = restore_checkpoint(
+                ckpt_dir, (fresh, adamw_init(fresh)), resume_at)
+            _sync(device)
+            timing["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            del fresh
+            got, want_tree = tree_leaves((rp, ropt)), tree_leaves(
+                saved.pop("tree"))
+            check(step == resume_at and len(got) == len(want_tree)
+                  and all(_bits_equal(a, b) for a, b in zip(got, want_tree)),
+                  f"{arch}: the restored step {step} differs from the saved "
+                  f"tree")
+            del got, want_tree
+            resumed = _train_steps(
+                step_fn, rp, ropt, _batches(cfg, seq, batch, seed, resume_at,
+                                            steps - resume_at, device),
+                device)
+            params, opt = resumed[3], resumed[4]
+    for i, got in enumerate(launches + (resumed[2] if resumed else []), 1):
+        check(got == want, f"{arch} train step {i} launched {got}, "
+              f"expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"{arch} losses {losses}")
+    check(not descent or statistics.mean(losses[-3:]) < losses[0],
+          f"{arch}: the mean loss of the last three steps "
+          f"{losses[-3:]} is not below the first {losses[0]}")
+    resume = None
+    if resumed:
+        again = resumed[0]
+        straight = losses[resume_at:]
+        exact = not nondeterministic
+        if exact:
+            check(again == straight, f"{arch}: resumed losses {again} != "
+                  f"straight {straight} (deterministic steps)")
+        else:
+            check(all(abs(a - b) <= 1e-3 * abs(b)
+                      for a, b in zip(again, straight)),
+                  f"{arch}: resumed losses {again} vs straight {straight}")
+        resume = dict(resumed_losses=again, bit_for_bit=exact,
+                      equal=again == straight,
+                      nondeterministic_ops=nondeterministic, **timing)
+    step_ms = statistics.median(walls[1:]) if len(walls) > 1 else walls[0]
+    batch_dev = next(iter(_batches(cfg, seq, batch, seed, steps, 1, device)))
+    prof = profile_busy(lambda: step_fn(params, opt, batch_dev), device,
+                        KERNEL_SYMBOLS.get(route), top=8)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    r = dict(arch=arch, n_layers=cfg.n_layers, reduced=cuts,
+             n_params=n_params, dtype=cfg.dtype, remat=cfg.remat,
+             grad_accum=accum, batch=batch, seq=seq, init_s=init_s,
+             losses=losses, walls_ms=walls, step_ms=step_ms,
+             tokens_per_s=batch * seq / (step_ms / 1e3),
+             launches_a_step=launches[0], launches=sum(
+                 (collections.Counter(x) for x in
+                  launches + (resumed[2] if resumed else [])),
+                 collections.Counter()),
+             resume=resume, profile=prof, peak_memory_bytes=peak)
+    print(f"train {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters {cfg.dtype}, remat {cfg.remat}, "
+          f"grad_accum {accum}; reduced: {'; '.join(cuts)}): {len(losses)} "
+          f"steps of {batch} x {seq} tokens, losses {losses}; each step "
+          f"launched {launches[0]}"
+          + (f"; checkpoint after step {resume_at} (save_async "
+             f"{timing['save_async_ms']:.3f} ms, written in "
+             f"{timing['save_total_ms']:.3f} ms), restored bit for bit in "
+             f"{timing['restore_ms']:.3f} ms; steps {resume_at + 1}-{steps} "
+             f"again: losses {resume['resumed_losses']}, "
+             + ("equal bit for bit (every op of the steps deterministic "
+                "under torch.use_deterministic_algorithms)" if resume
+                ["bit_for_bit"] else
+                f"within 1e-3 relative (equal: {resume['equal']}; ops without "
+                f"a deterministic implementation: {nondeterministic})")
+             if resume else ""))
+    print(f"time train {arch}: step median {step_ms:.3f} ms over steps "
+          f"2-{len(walls)} ({r['tokens_per_s']:.1f} tokens/s; walls "
+          f"{[round(w, 3) for w in walls]} ms); peak allocated memory "
+          f"{f'{peak} B' if peak is not None else 'not measured (no card)'}")
+    print(f"profile train step {arch}: wall {prof['wall_ms']:.3f} ms "
+          f"(profiled), card busy {prof['busy_ms']:.3f} ms over "
+          f"{prof['device_events']} device spans ({route} kernel "
+          f"{prof['kernel_ms']:.3f} ms), idle share {_fmt_idle(prof)}; top "
+          f"device functions (ms, count): "
+          + "; ".join(f"{t['name']} {t['ms']:.3f} x{t['count']}"
+                      for t in prof["top"]))
+    del params, opt, batch_dev, resumed
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return r
+
+
+def _wall_ms(fn, device, n: int = 3) -> float:
+    """Median host time (ms) of ``n`` calls of ``fn`` after an untimed one,
+    each ending in a synchronize."""
+    fn()
+    _sync(device)
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def _grads_of(fn, ins, cots):
+    """(outputs, gradients of ``ins``) of ``fn`` under the cotangents."""
+    ins = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cots)
+    return [o.detach() for o in outs], [t.grad for t in ins]
+
+
+#: the autograd routes at the train phase's shapes (label, b, hq, hkv, s, d,
+#: dtype, keywords): qwen2's train shape on the tensor cores, then the
+#: float32 route with each keyword
+GRAD_FLASH_CASES = (
+    ("qwen2 train", 4, 14, 2, 4096, 64, "bfloat16", dict(causal=True)),
+    ("causal", 1, 14, 2, 512, 64, "float32", dict(causal=True)),
+    ("window", 1, 14, 2, 512, 64, "float32", dict(causal=True, window=128)),
+    ("softcap", 1, 14, 2, 512, 64, "float32", dict(causal=True, cap=50.0)),
+    ("kv_len", 1, 14, 2, 512, 64, "float32", dict(causal=False,
+                                                  kv_len=300)),
+    ("q0", 1, 14, 2, 512, 64, "float32", dict(causal=True, q0=256)),
+)
+#: rwkv6-7b's microbatch at the train phase's shape
+GRAD_WKV_SHAPE = (2, 64, 1024, 64)
+
+
+def train_kernel_grads(device) -> dict:
+    """The kernels' autograd ``Function``s at the train phase's shapes: the
+    forward (the kernel) against the plain version at 2e-2 (bf16) / 2e-5
+    (float32), and the gradients of a fixed random cotangent against the
+    plain version's own autograd gradients, bit for bit (the backward
+    recomputes through that same plain function; a mismatch means a
+    keyword or a stride did not reach the recompute). Then, at the models'
+    shapes (qwen2's train shape, rwkv6's microbatch; the float32 route at
+    its causal case), the device time of a forward (the kernel; CUDA
+    events), and of a backward (the plain recompute, the ``Function``'s backward) the card's
+    busy time under ``torch.profiler`` and the host time ending in a
+    synchronize (its time in a step: the WKV recompute's ~10,000 small ops
+    leave the card waiting on the host)."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    for label, b, hq, hkv, s, d, dtype, kw in GRAD_FLASH_CASES:
+        q, k, v = _flash_inputs(gen, device, b, hq, hkv, s, s, d, dtype, 1.0)
+        do = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
+        _build.launches.clear()
+        got_o, got = _grads_of(
+            lambda *a: flash_ops.flash_attention(*a, **kw), (q, k, v), (do,))
+        route = flash_route(q.dtype, d)
+        check(dict(_build.launches) == {route: 1},
+              f"grad {label}: launched {dict(_build.launches)}")
+        want_o, want = _grads_of(lambda *a: flash_attention_ref(*a, **kw),
+                                 (q, k, v), (do,))
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        err = _within(got_o[0], want_o[0], tol, tol,
+                      f"grad {label} forward vs plain")
+        same = [_bits_equal(g, w) for g, w in zip(got, want)]
+        check(all(same), f"grad {label}: dq/dk/dv bit for bit {same}")
+        row = dict(route=route, shape=f"q ({b}, {hq}, {s}, {d}) {dtype}, "
+                   f"k/v ({b}, {hkv}, {s}, {d}), {kw}", max_abs_err=err)
+        if label in ("qwen2 train", "causal"):
+            def backward():
+                flash_ops.recompute_grads(q, k, v, do, (True,) * 3, **kw)
+            peak = BF16_FLOP_PER_S if dtype == "bfloat16" \
+                else FP32_FLOP_PER_S
+            row.update(
+                ms=device_ms(lambda: flash_attention_cuda(q, k, v, **kw), 5,
+                             device),
+                backward_wall_ms=_wall_ms(backward, device),
+                backward_ms=profile_busy(backward, device, "")["busy_ms"],
+                **_bound(*_flash_work(q, k, v, kw["causal"]), peak))
+        out.setdefault(route, []).append(row)
+        del q, k, v, do, got, want, got_o, want_o
+    b, h, s, d = GRAD_WKV_SHAPE
+    r, k, v, logw, u = _wkv_views(gen, device, b, h, s, d)
+    state = torch.randn((b, h, d, d), generator=gen, device=device) * 0.5
+    do = torch.randn((b, h, s, d), generator=gen, device=device).bfloat16()
+    dstate = torch.randn((b, h, d, d), generator=gen, device=device)
+    ins = (r, k, v, logw, u, state)
+    _build.launches.clear()
+    got_o, got = _grads_of(lambda *a: wkv_ops.wkv_with_state(*a),
+                           ins, (do, dstate))
+    check(dict(_build.launches) == {"wkv_split": 1},
+          f"grad wkv: launched {dict(_build.launches)}")
+    want_o, want = _grads_of(lambda *a: wkv_chunked_ref(*a), ins,
+                             (do, dstate))
+    err = max(_within(got_o[0], want_o[0], 2e-2, 2e-2, "grad wkv o"),
+              _within(got_o[1], want_o[1], 1e-3, 1e-3, "grad wkv state"))
+    same = [_bits_equal(g, w) for g, w in zip(got, want)]
+    check(all(same), f"grad wkv: dr/dk/dv/dlogw/du/dstate bit for bit {same}")
+
+    def backward():
+        wkv_ops.recompute_grads(*ins, do, dstate, (True,) * 6)
+
+    out["wkv_split"] = [dict(
+        route="wkv_split", max_abs_err=err,
+        shape=f"r/k/v ({b}, {h}, {s}, {d}) bf16 views, logw float32, from "
+              f"a non-zero state, cotangents on o and the state",
+        ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u, state), 10, device),
+        backward_wall_ms=_wall_ms(backward, device),
+        backward_ms=profile_busy(backward, device, "")["busy_ms"],
+        **_bound(*_wkv_work(r, k, v, logw, u, state, got_o[0], 16),
+                 FP32_FLOP_PER_S))]
+    for route, rows in out.items():
+        for row in rows:
+            print(f"grad {route} {row['shape']}: forward max abs err "
+                  f"{row['max_abs_err']:.3e}, gradients bit for bit equal "
+                  f"to the plain version's autograd"
+                  + (f"; forward {row['ms']:.4f} ms (the forward's bound "
+                     f"{row['bound_ms']:.4f} ms, {row['bound_by']}), "
+                     f"backward (plain recompute) {row['backward_ms']:.4f} "
+                     f"ms of card busy time, {row['backward_wall_ms']:.4f} "
+                     f"ms of host time a call" if "ms" in row else ""))
+    return out
+
+
+# ------------------------------------------------ 12. elastic KV (dkv) path
 _VAL = struct.Struct("<II")        # seq twice: a torn read shows mixed halves
 
 
@@ -2827,7 +3243,7 @@ def dkv_phase(device, *, n_mem, n_compute, n_shards, n_buckets, n_keys,
                 **suites)
 
 
-# ----------------------------------------------------- 12. gateway (host)
+# ----------------------------------------------------- 13. gateway (host)
 def bench_traces(n_nodes: int = 4, duration_us: float = 200_000.0,
                  rate_per_s: float = 400.0) -> list:
     """``benchmarks/serverless.py``'s trace cells through the port: the
@@ -2943,6 +3359,83 @@ def _run_summary(r: dict) -> dict:
                 decode_idle_share=r["decode_profile"]["idle_share"])
 
 
+def train_phase_child(device) -> int:
+    """Phase 11 itself, run as ``chip_smoke.py --train`` by
+    :func:`train_phase` (the kernels built already): the autograd routes,
+    each model's steps, the recompute's share; its results go to
+    ``TRAIN_CKPT_DIR / "result.json"``."""
+    t0 = time.perf_counter()
+    grads = train_kernel_grads(device)
+    training = {m["arch"]: train_model(device, **m,
+                                       ckpt_dir=str(TRAIN_CKPT_DIR))
+                for m in TRAIN_SIZE}
+    recompute = train_recompute_share(training, grads)
+    print(f"train phase wall time {time.perf_counter() - t0:.3f} s "
+          f"(its own process, with {TRAIN_ENV})", flush=True)
+    (TRAIN_CKPT_DIR / "result.json").write_text(json.dumps(dict(
+        grads=grads, training=training, recompute=recompute)))
+    return 0
+
+
+def train_phase() -> tuple:
+    """Run phase 11 in a child process with ``TRAIN_ENV`` (see there) and
+    return its (grads, training, recompute); fails if the child fails.
+    The checkpoint directory is removed either way."""
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    sys.stdout.flush()
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--train"],
+            env={**os.environ, **TRAIN_ENV}, timeout=900)
+        check(proc.returncode == 0,
+              f"the train phase exited {proc.returncode}")
+        out = json.loads((TRAIN_CKPT_DIR / "result.json").read_text())
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    return out["grads"], out["training"], out["recompute"]
+
+
+def train_recompute_share(training: dict, grads: dict) -> dict:
+    """The backward's plain recompute in each train step: the host time
+    (ending in a synchronize) of one recompute at the model's shape
+    (``train_kernel_grads``) times the recomputes a step makes (one a
+    kernel call of the forward), over the median step time; beside it the
+    same with the recompute's card busy time."""
+    out = {}
+    for arch, row in training.items():
+        route = next(iter(row["launches_a_step"]))
+        calls = row["launches_a_step"][route] // (1 if row["remat"] == "none"
+                                                  else 2)
+        grad = next(g for g in grads[route] if "backward_ms" in g)
+        ms = calls * grad["backward_wall_ms"]
+        out[arch] = dict(route=route, recomputes_a_step=calls,
+                         backward_ms=grad["backward_ms"],
+                         backward_wall_ms=grad["backward_wall_ms"],
+                         forward_ms=grad["ms"], shape=grad["shape"],
+                         recompute_ms_a_step=ms,
+                         recompute_share=ms / row["step_ms"],
+                         recompute_device_share=calls * grad["backward_ms"]
+                         / row["step_ms"])
+        print(f"train {arch}: {calls} backward recomputes of {route}'s plain "
+              f"version a step x {grad['backward_wall_ms']:.4f} ms (host; card "
+              f"busy {grad['backward_ms']:.4f} ms) = {ms:.3f} ms, "
+              f"{out[arch]['recompute_share']:.4f} of the {row['step_ms']:.3f}"
+              f" ms step ({out[arch]['recompute_device_share']:.4f} by busy "
+              f"time; the kernel's forward at that shape: {grad['ms']:.4f} "
+              f"ms)")
+    return out
+
+
+def _train_summary(r: dict, recompute: dict) -> dict:
+    """The train phase's numbers of one model, for the ``kernels`` line."""
+    keys = ("n_layers", "reduced", "n_params", "grad_accum", "batch", "seq",
+            "losses", "step_ms", "tokens_per_s", "launches_a_step",
+            "resume", "peak_memory_bytes")
+    return dict({k: r[k] for k in keys}, **recompute,
+                idle_share=r["profile"]["idle_share"],
+                busy_ms=r["profile"]["busy_ms"])
+
+
 # ------------------------------------------------------------------- main
 #: launches each main-path run must make, exactly (see the module docstring)
 LOOKUP_LAUNCHES = {
@@ -2963,14 +3456,20 @@ SCALAR_SPANS = 4
 CHAIN_SPANS = 48
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    device_report()
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv == ["--train"]:
+        return train_phase_child(device)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+    device_report()
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False (float32 products in "
           "full float32)")
@@ -3003,6 +3502,9 @@ def main() -> int:
         errs[r["route"]] = max(errs[r["route"]], r["max_abs_err"])
     model_times = measure_model_kernels(device, flash_shapes)
     ptxas = ptxas_phase()
+    grads, training, recompute = train_phase()
+    for route, rows in grads.items():
+        errs[route] = max([errs[route]] + [r["max_abs_err"] for r in rows])
     dkv = dkv_phase(device, **DKV_SIZE)
     check(dkv["launches"] == DKV_LAUNCHES,
           f"dkv launches {dkv['launches']}, expected {DKV_LAUNCHES}")
@@ -3053,13 +3555,23 @@ def main() -> int:
         launches.update(row["prefill_launches"])
     for row in consistent:
         launches.update(row["launches"])
+    for row in training.values():
+        launches.update(row["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
     by_arch = {row["arch"]: row for row in consistent}
     kernels = []
-    model_runs = {"flash_attention_mma": dict(serve=qwen2),
-                  "flash_attention": dict(consistency=by_arch["qwen2_0_5b"]),
+    model_runs = {"flash_attention_mma": dict(
+                      serve=qwen2, train=_train_summary(
+                          training["qwen2_0_5b"], recompute["qwen2_0_5b"]),
+                      grad=grads["flash_attention_mma"]),
+                  "flash_attention": dict(consistency=by_arch["qwen2_0_5b"],
+                                          grad=grads["flash_attention"]),
                   "wkv_split": dict(serve=rwkv6,
-                                    consistency=by_arch["rwkv6_7b"]),
+                                    consistency=by_arch["rwkv6_7b"],
+                                    train=_train_summary(
+                                        training["rwkv6_7b"],
+                                        recompute["rwkv6_7b"]),
+                                    grad=grads["wkv_split"]),
                   "wkv": dict(main_path=False)}
     # the moe, MLA, hybrid and encoder-decoder runs of each flash route,
     # and its times at their prefill shapes with the prefill's launches
@@ -3126,6 +3638,8 @@ def main() -> int:
             replaces=REPLACES[name], launches=n, max_abs_err=errs[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=bound_by, **extra))
+    print(f"chip_smoke wall time {time.perf_counter() - started:.3f} s "
+          f"(from the device report, the build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3134,4 +3648,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,14 +16,18 @@ easy to find. Ported so far (see ``README.md`` beside this file):
                              device-resident bucket tables
   serverless/                the chain hop: ``ChainRunner`` over the
                              port's core, with its slabs on the card
-  configs/, models/          the dense and ssm (rwkv6) model families:
-                             ``forward_full``, ``prefill``,
-                             ``decode_step``, ``init_params`` and the
-                             JAX weight bridge
+  configs/, models/          every model family: ``forward_full``,
+                             ``prefill``, ``decode_step``, the
+                             differentiable ``train_loss``,
+                             ``init_params`` and the JAX weight bridge
   kernels/flash_attention/   blockwise GQA attention in CUDA C++ (prefill)
   kernels/rwkv6/             the chunked RWKV-6 WKV scan in CUDA C++
-  elastic/, launch/          ``ExecutablePool``, the prefill and decode
-                             steps, ``ServingWorker``
+  elastic/, launch/          ``ExecutablePool``, straggler mitigation,
+                             the train, prefill and decode steps,
+                             ``ServingWorker``, the training loop
+  optim/, data/, checkpoint/ AdamW, the synthetic data feed, checkpoints
+                             in the reference's format
+  distributed/               int8 gradient compression and its all-reduce
 """
 
 from .device import resolve_device

@@ -1,0 +1,8 @@
+"""Atomic, async checkpoints with auto-resume in the reference's format (the
+counterpart of ``repro.checkpoint``)."""
+
+from .ckpt import (CheckpointManager, latest_step, restore_checkpoint,
+                   save_checkpoint)
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "latest_step"]

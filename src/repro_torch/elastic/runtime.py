@@ -1,6 +1,9 @@
-"""The executable pool of the elastic runtime (the counterpart of the pure
-Python part of ``repro/elastic/runtime.py``: ``PoolEntry`` and
-``ExecutablePool``, copied).
+"""The elastic runtime's pure Python parts (the counterpart of
+``repro/elastic/runtime.py``): ``PoolEntry`` and ``ExecutablePool``, and
+the straggler mitigation ``StragglerPolicy`` / ``speculative_map``,
+copied. ``ElasticTrainer`` waits for the sharding plans of ROADMAP Queue 1
+item 9: its meshes, its ahead-of-time builds with input and output
+shardings and its resharding on a scale event belong to them.
 
 In JAX the pool caches compiled ``jit`` executables. PyTorch runs eagerly,
 so the port's serving workers store the plain step callable; the pool's
@@ -14,7 +17,9 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 # =========================================================== executable pool
@@ -90,3 +95,62 @@ class ExecutablePool:
     def wait_all(self) -> None:
         for t in list(self._inflight.values()):
             t.join()
+
+
+# ===================================================== straggler mitigation
+@dataclasses.dataclass
+class StragglerPolicy:
+    """Detect laggards from per-worker step durations."""
+    threshold: float = 2.0         # x median
+    min_samples: int = 3
+
+    def detect(self, durations: Sequence[float]) -> List[int]:
+        if len(durations) < self.min_samples:
+            return []
+        med = float(np.median(durations))
+        if med <= 0:
+            return []
+        return [i for i, d in enumerate(durations)
+                if d > self.threshold * med]
+
+
+def speculative_map(task_fn: Callable[[int, int], Any], n_tasks: int,
+                    worker_speeds: Sequence[float],
+                    policy: Optional[StragglerPolicy] = None
+                    ) -> Tuple[List[Any], float, Dict]:
+    """Deterministic simulation of speculative re-execution.
+
+    Tasks are dealt to workers with the given speed factors (duration =
+    speed). When a worker's expected finish exceeds policy.threshold x the
+    median, its task is re-dispatched to the earliest-free fast worker;
+    first copy to finish wins (the standard backup-task trick).
+    Returns (results, makespan, stats).
+    """
+    policy = policy or StragglerPolicy()
+    free_at = [0.0] * len(worker_speeds)
+    finish: List[Optional[float]] = [None] * n_tasks
+    results: List[Any] = [None] * n_tasks
+    assigned: List[Tuple[int, int, float]] = []      # (task, worker, done)
+    backups = 0
+    for t in range(n_tasks):
+        w = min(range(len(free_at)), key=lambda i: free_at[i])
+        start = free_at[w]
+        done = start + worker_speeds[w]
+        free_at[w] = done
+        assigned.append((t, w, done))
+        results[t] = task_fn(t, w)
+        finish[t] = done
+    durations = [worker_speeds[w] for (_, w, _) in assigned]
+    for idx in policy.detect(durations):
+        t, w, done = assigned[idx]
+        # re-dispatch to the fastest currently-free worker
+        cand = min(range(len(free_at)), key=lambda i: free_at[i]
+                   + worker_speeds[i])
+        alt_done = free_at[cand] + worker_speeds[cand]
+        if alt_done < done:
+            free_at[cand] = alt_done
+            finish[t] = alt_done
+            results[t] = task_fn(t, cand)
+            backups += 1
+    makespan = max(finish)
+    return results, makespan, {"backups": backups}

@@ -8,6 +8,13 @@ the CUDA card). For tensors on the CPU every impl runs the plain version;
 on a CUDA tensor ``"kernel"`` launches the kernel or raises. Tensors keep
 their strides: the kernel's wrapper reads them as they are or copies them
 for the route that needs contiguous inputs.
+
+Gradients: as for flash attention (``kernels/flash_attention/ops.py``),
+a recorded call on CUDA tensors goes through :class:`WkvFunction`, whose
+forward launches the kernel and whose backward recomputes ``o`` and the
+final state through the plain chunked version; gradients reach r, k, v,
+logw, u and the initial state, from cotangents on either output. An
+unrecorded call launches the kernel directly.
 """
 
 from __future__ import annotations
@@ -19,6 +26,49 @@ from .ref import wkv_chunked_ref
 from .rwkv6 import wkv_cuda
 
 IMPLS = ("kernel", "ref")
+
+
+def recompute_grads(r, k, v, logw, u, state, do, dstate, needs, *,
+                    chunk: int = 16):
+    """Gradients of the plain chunked version at (r, k, v, logw, u, state)
+    (``state`` None: zero) against the cotangents ``do`` and ``dstate`` (None:
+    that output takes none), recomputed under autograd; None where
+    ``needs`` is false."""
+    ins = [None if t is None else t.detach().requires_grad_(n)
+           for t, n in zip((r, k, v, logw, u, state), needs)]
+    if ins[5] is None:
+        ins[5] = torch.zeros((*r.shape[:2], r.shape[-1], v.shape[-1]),
+                             dtype=torch.float32, device=r.device)
+    pairs = [(o, g) for o, g in zip((0, 1), (do, dstate)) if g is not None]
+    wrt = [t for t in ins if t.requires_grad]
+    if not pairs or not wrt:
+        return [None] * 6
+    with torch.enable_grad():
+        outs = wkv_chunked_ref(*ins, chunk=chunk)
+        got = iter(torch.autograd.grad(
+            [outs[i] for i, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True, materialize_grads=True))
+    return [next(got) if n else None for n in needs]
+
+
+class WkvFunction(torch.autograd.Function):
+    """``forward(r, k, v, logw, u, state, chunk=chunk)`` as the forward (the
+    CUDA kernel; the tests pass the plain version on the CPU), the plain
+    chunked version's recomputed gradients as the backward. It saves the
+    six inputs (``state`` may be None: a zero state)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state, forward, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        return forward(r, k, v, logw, u, state, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        grads = recompute_grads(*ctx.saved_tensors, do, dstate,
+                                ctx.needs_input_grad[:6], chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 def wkv_with_state(r, k, v, logw, u, state=None, *, chunk: int = 16,
@@ -38,6 +88,10 @@ def wkv_with_state(r, k, v, logw, u, state=None, *, chunk: int = 16,
             state = torch.zeros((*r.shape[:2], r.shape[-1], v.shape[-1]),
                                 dtype=torch.float32, device=r.device)
         return wkv_chunked_ref(r, k, v, logw, u, state, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, state)):
+        return WkvFunction.apply(r, k, v, logw, u, state, wkv_cuda, chunk)
     return wkv_cuda(r, k, v, logw, u, state, chunk=chunk)
 
 

@@ -1,2 +1,3 @@
-"""Serving entry points of the port: the prefill/decode step factories
-(``steps.py``) and batched greedy serving (``serve.py``)."""
+"""Entry points of the port: the train / prefill / decode step factories
+(``steps.py``), the training loop (``train.py``) and batched greedy
+serving (``serve.py``)."""

@@ -6,8 +6,9 @@ Every full-sequence layer fn has the signature
 and every decode layer fn
     fn(cfg, p_layer, x, cache_entry...) -> (x, new_cache_entry...)
 so ``model.py`` drives them with a Python loop over the stacked layer axis
-(JAX's ``lax.scan``). JAX's remat wrappers have no counterpart: the port
-serves, it does not train.
+(JAX's ``lax.scan``). ``remat_wrap`` is JAX's: ``model.py`` wraps the
+bodies JAX wraps, and the train step (``launch/steps.py``) differentiates
+through them.
 
 The layers of every family: dense and MoE transformer layers, MLA layers
 (deepseek-v2), rwkv6 and Mamba-2 mixers, and the encoder-decoder's
@@ -17,7 +18,11 @@ cache tensors it is given, in place, and returns them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import attention, decode_attention
 from .common import act_fn, apply_norm, apply_rope
@@ -223,3 +228,50 @@ def cross_attention_decode(cfg, p, x, xk, xv):
     o = decode_attention(q, xk, xv, xk.shape[2])
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return torch.einsum("bse,ed->bsd", o, p["xwo"])
+
+
+# ---------------------------------------------------------------- wrappers
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    matrix products without batch dims (``mm``, ``addmm``, and the ``bmm``
+    of batch 1 that ``einsum`` makes of one), recompute the rest."""
+    if op in _MATMULS or (op == torch.ops.aten.bmm.default
+                          and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _records_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_records_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` as it is; ``"block"`` keeps
+    only its inputs for the backward and reruns it there
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the
+    outputs of its matrix products without batch dims as well. Remat
+    changes memory, never values. A call that autograd does not record
+    (no argument requires grad, or grad mode off: serving) runs ``fn``
+    directly."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("block", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    extra = {}
+    if cfg.remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and _records_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return wrapped

@@ -6,7 +6,7 @@ Public entry points (cfg first, as in JAX; no ``jit``: PyTorch runs
 eagerly, and a Python loop over the stacked layer axis takes the place of
 ``lax.scan``):
 
-  train_loss(cfg, params, batch)                   -> scalar loss (forward)
+  train_loss(cfg, params, batch)                   -> scalar loss
   forward_full(cfg, params, batch, collect=False)  -> (hidden, labels,
                                                       caches, aux)
   prefill(cfg, params, batch, max_len)             -> (last_logits, cache)
@@ -30,10 +30,17 @@ cross-attention layers) or the WKV kernel once per layer (ssm);
 MLA decode, ``ssd_decode`` and ``wkv_decode``). ``decode_step`` writes the
 new token's entries into the cache tensors it is given, in place, and
 returns them.
+
+``train_loss`` is differentiable for every family (``launch/steps.py``'s
+``make_train_step`` takes its gradients): the layer bodies JAX wraps in
+``remat_wrap`` are wrapped here too (``cfg.remat``), and on the card the
+kernels' autograd ``Function``s carry the gradient through attention and
+the WKV scan (``kernels/*/ops.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -51,11 +58,16 @@ def _largest_divisor(n: int, target: int) -> int:
     return c
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked (sub)tree: a view of every leaf."""
+def _layers(tree) -> list:
+    """The layers of a stacked (sub)tree, each a tree of views: one
+    ``unbind`` a leaf, whose backward is one ``stack`` of the layers'
+    gradients (indexing layer by layer would add a full-size gradient of
+    the stacked leaf per layer)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        keys = list(tree)
+        return [dict(zip(keys, vals))
+                for vals in zip(*(_layers(tree[k]) for k in keys))]
+    return list(tree.unbind(0))
 
 
 # ------------------------------------------------------------ embeddings
@@ -93,21 +105,13 @@ def _window_for(cfg, which: str) -> Optional[int]:
     return cfg.sliding_window
 
 
-def _n_stacked(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.shape[0]
-
-
 def run_dense_full(cfg, params_blocks, x, positions, *, ffn="mlp",
                    collect=False, causal=True):
     """Loop over the stacked dense layers (gemma2: (local, global) pairs).
     Returns (x, (k, v) stacked as JAX's scan stacks them or None, aux)."""
     paired = cfg.layer_pattern == "local_global"
-    ks, vs = [], []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_n_stacked(params_blocks)):
-        p_l = _layer(params_blocks, i)
+
+    def body(x, p_l):
         if paired:
             x, kv_l, aux_l = B.dense_layer_full(
                 cfg, p_l["local"], x, positions,
@@ -115,18 +119,23 @@ def run_dense_full(cfg, params_blocks, x, positions, *, ffn="mlp",
             x, kv_g, aux_g = B.dense_layer_full(
                 cfg, p_l["global"], x, positions,
                 _window_for(cfg, "global"), ffn=ffn, causal=causal)
-            if collect:
-                ks.append(torch.stack([kv_l[0], kv_g[0]]))
-                vs.append(torch.stack([kv_l[1], kv_g[1]]))
-            aux = aux + aux_l + aux_g
-        else:
-            x, kv, aux_i = B.dense_layer_full(
-                cfg, p_l, x, positions, _window_for(cfg, "global"),
-                ffn=ffn, causal=causal)
-            if collect:
-                ks.append(kv[0])
-                vs.append(kv[1])
-            aux = aux + aux_i
+            kv = (torch.stack([kv_l[0], kv_g[0]]),
+                  torch.stack([kv_l[1], kv_g[1]])) if collect else None
+            return x, kv, aux_l + aux_g
+        x, kv, aux = B.dense_layer_full(
+            cfg, p_l, x, positions, _window_for(cfg, "global"), ffn=ffn,
+            causal=causal)
+        return x, kv if collect else None, aux
+
+    body = B.remat_wrap(cfg, body)
+    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_l in _layers(params_blocks):
+        x, kv, aux_i = body(x, p_l)
+        if collect:
+            ks.append(kv[0])
+            vs.append(kv[1])
+        aux = aux + aux_i
     kvs = (torch.stack(ks), torch.stack(vs)) if collect else None
     return x, kvs, aux
 
@@ -135,8 +144,7 @@ def run_dense_decode(cfg, params_blocks, x, kcache, vcache, cur_len: int,
                      ffn="mlp"):
     """One token through every dense layer; writes the caches in place."""
     paired = cfg.layer_pattern == "local_global"
-    for i in range(_n_stacked(params_blocks)):
-        p_l = _layer(params_blocks, i)
+    for i, p_l in enumerate(_layers(params_blocks)):
         if paired:
             x, _, _ = B.dense_layer_decode(
                 cfg, p_l["local"], x, kcache[i, 0], vcache[i, 0], cur_len,
@@ -157,12 +165,16 @@ def run_ssm_full(cfg, params_blocks, x, chunk=16):
     b = x.shape[0]
     h = cfg.n_heads
     dk = cfg.d_model // h
-    caches = []
-    for i in range(_n_stacked(params_blocks)):
+
+    def body(x, p_l):
         state0 = torch.zeros((b, h, dk, dk), dtype=torch.float32,
                              device=x.device)
-        x, cache = B.rwkv_layer_full(cfg, _layer(params_blocks, i), x,
-                                     state0, chunk=chunk)
+        return B.rwkv_layer_full(cfg, p_l, x, state0, chunk=chunk)
+
+    body = B.remat_wrap(cfg, body)
+    caches = []
+    for p_l in _layers(params_blocks):
+        x, cache = body(x, p_l)
         caches.append(cache)
     return x, tuple(torch.stack(c) for c in zip(*caches))
 
@@ -171,10 +183,9 @@ def run_ssm_decode(cfg, params_blocks, x, cache):
     """One token through every rwkv layer; writes the three stacked cache
     tensors in place and returns them."""
     att_xprev, att_state, cmix_xprev = cache
-    for i in range(_n_stacked(params_blocks)):
+    for i, p_l in enumerate(_layers(params_blocks)):
         x, (ax, st, cx) = B.rwkv_layer_decode(
-            cfg, _layer(params_blocks, i), x,
-            (att_xprev[i], att_state[i], cmix_xprev[i]))
+            cfg, p_l, x, (att_xprev[i], att_state[i], cmix_xprev[i]))
         att_xprev[i] = ax
         att_state[i] = st
         cmix_xprev[i] = cx
@@ -191,11 +202,12 @@ def run_mla_full(cfg, params, x, positions, collect=False):
                            ("blocks", "moe", "moe")):
         if key not in params:
             continue
+        body = B.remat_wrap(cfg, functools.partial(
+            B.mla_layer_full, cfg, positions=positions, ffn=ffn,
+            collect=collect))
         ckvs, krs = [], []
-        for i in range(_n_stacked(params[key])):
-            x, cache, aux_i = B.mla_layer_full(
-                cfg, _layer(params[key], i), x, positions, ffn=ffn,
-                collect=collect)
+        for p_l in _layers(params[key]):
+            x, cache, aux_i = body(p_l, x)
             aux = aux + aux_i
             if collect:
                 ckvs.append(cache[0])
@@ -213,10 +225,9 @@ def run_mla_decode(cfg, params, x, cache, cur_len: int):
                               ("blocks", "moe", "ckv", "krope")):
         if key not in params:
             continue
-        for i in range(_n_stacked(params[key])):
-            x, _, _ = B.mla_layer_decode(cfg, _layer(params[key], i), x,
-                                         cache[ckv][i], cache[kr][i],
-                                         cur_len, ffn=ffn)
+        for i, p_l in enumerate(_layers(params[key])):
+            x, _, _ = B.mla_layer_decode(cfg, p_l, x, cache[ckv][i],
+                                         cache[kr][i], cur_len, ffn=ffn)
     return x, cache
 
 
@@ -225,11 +236,16 @@ def _mamba_full(cfg, stacked, x):
     Returns (x, (state (L,B,H,P,N) f32, conv (L,B,k-1,conv_dim)))."""
     b = x.shape[0]
     h, pd, n = cfg.n_heads, cfg.d_inner // cfg.n_heads, cfg.ssm_state
-    states, convs = [], []
-    for i in range(_n_stacked(stacked)):
+
+    def body(x, p_l):
         state0 = torch.zeros((b, h, pd, n), dtype=torch.float32,
                              device=x.device)
-        x, (st, cv) = B.mamba_layer_full(cfg, _layer(stacked, i), x, state0)
+        return B.mamba_layer_full(cfg, p_l, x, state0)
+
+    body = B.remat_wrap(cfg, body)
+    states, convs = [], []
+    for p_l in _layers(stacked):
+        x, (st, cv) = body(x, p_l)
         states.append(st)
         convs.append(cv)
     return x, (torch.stack(states), torch.stack(convs))
@@ -239,8 +255,8 @@ def _mamba_decode(cfg, stacked, x, cache):
     """One token through a stacked segment of mamba layers; writes the
     (state, conv) cache tensors in place."""
     states, convs = cache
-    for i in range(_n_stacked(stacked)):
-        x, (st, cv) = B.mamba_layer_decode(cfg, _layer(stacked, i), x,
+    for i, p_l in enumerate(_layers(stacked)):
+        x, (st, cv) = B.mamba_layer_decode(cfg, p_l, x,
                                            (states[i], convs[i]))
         states[i] = st
         convs[i] = cv
@@ -253,10 +269,16 @@ def run_hybrid_full(cfg, params, x, positions, collect=False):
     stacked (n_periods, period, ...), (k, v) stacked or None, tail caches
     or None))."""
     shared = params["shared_attn"]
-    mcaches, ks, vs = [], [], []
-    for i in range(_n_stacked(params["blocks"])):
-        x, mc = _mamba_full(cfg, _layer(params["blocks"], i), x)
+
+    def period_body(x, p_period, shared):
+        x, mc = _mamba_full(cfg, p_period, x)
         x, kv, _ = B.dense_layer_full(cfg, shared, x, positions, None)
+        return x, mc, kv if collect else None
+
+    period_body = B.remat_wrap(cfg, period_body)
+    mcaches, ks, vs = [], [], []
+    for p_period in _layers(params["blocks"]):
+        x, mc, kv = period_body(x, p_period, shared)
         mcaches.append(mc)
         if collect:
             ks.append(kv[0])
@@ -273,9 +295,8 @@ def run_hybrid_decode(cfg, params, x, cache, cur_len: int):
     """One token through zamba2; writes every cache tensor in place."""
     shared = params["shared_attn"]
     states, convs = cache["mamba"]
-    for i in range(_n_stacked(params["blocks"])):
-        x = _mamba_decode(cfg, _layer(params["blocks"], i), x,
-                          (states[i], convs[i]))
+    for i, p_period in enumerate(_layers(params["blocks"])):
+        x = _mamba_decode(cfg, p_period, x, (states[i], convs[i]))
         x, _, _ = B.dense_layer_decode(cfg, shared, x, cache["k"][i],
                                        cache["v"][i], cur_len, None)
     if "tail_blocks" in params:
@@ -291,20 +312,28 @@ def run_encdec_full(cfg, params, frames, dec_x, dec_positions,
     b, s_enc = frames.shape[:2]
     enc_positions = torch.arange(s_enc, device=frames.device).expand(
         b, s_enc)
+
+    def enc_body(x, p_l):
+        return B.dense_layer_full(cfg, p_l, x, enc_positions, None,
+                                  causal=False)[0]
+
+    def dec_body(x, p_l, memory):
+        x, kv, _ = B.dense_layer_full(cfg, p_l, x, dec_positions, None)
+        xo, xkv = B.cross_attention_full(cfg, p_l, x, memory)
+        return x + xo, (*kv, *xkv) if collect else None
+
+    enc_body = B.remat_wrap(cfg, enc_body)
+    dec_body = B.remat_wrap(cfg, dec_body)
     x = frames
-    for i in range(_n_stacked(params["enc_blocks"])):
-        x, _, _ = B.dense_layer_full(cfg, _layer(params["enc_blocks"], i), x,
-                                     enc_positions, None, causal=False)
+    for p_l in _layers(params["enc_blocks"]):
+        x = enc_body(x, p_l)
     memory = apply_norm(cfg, x, params.get("enc_final_norm"))
     x = dec_x
     kv_caches = []
-    for i in range(_n_stacked(params["dec_blocks"])):
-        p_l = _layer(params["dec_blocks"], i)
-        x, kv, _ = B.dense_layer_full(cfg, p_l, x, dec_positions, None)
-        xo, xkv = B.cross_attention_full(cfg, p_l, x, memory)
-        x = x + xo
+    for p_l in _layers(params["dec_blocks"]):
+        x, kv = dec_body(x, p_l, memory)
         if collect:
-            kv_caches.append((*kv, *xkv))
+            kv_caches.append(kv)
     caches = None
     if collect:
         k, v, xk, xv = (torch.stack(c) for c in zip(*kv_caches))
@@ -315,8 +344,7 @@ def run_encdec_full(cfg, params, frames, dec_x, dec_positions,
 def run_encdec_decode(cfg, params, x, cache, cur_len: int):
     """One decoder token; reads ``xk`` / ``xv`` from the cache (never
     recomputes them) and writes ``k`` / ``v`` in place."""
-    for i in range(_n_stacked(params["dec_blocks"])):
-        p_l = _layer(params["dec_blocks"], i)
+    for i, p_l in enumerate(_layers(params["dec_blocks"])):
         x, _, _ = B.dense_layer_decode(cfg, p_l, x, cache["k"][i],
                                        cache["v"][i], cur_len, None)
         x = x + B.cross_attention_decode(cfg, p_l, x, cache["xk"][i],
@@ -362,16 +390,28 @@ def forward_full(cfg, params, batch, collect=False):
 
 
 # ------------------------------------------------------------------- loss
-def unembed_chunk(cfg, params, h):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("btd,dv->btv", h.float(), w.float())
+def _unembed_weight(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _unembed(cfg, h, wf):
+    """Logits in float32 from the float32 copy ``wf`` of the (d, V) weight:
+    the products of JAX's bf16 x bf16 einsum with a float32 result."""
+    logits = torch.einsum("btd,dv->btv", h.float(), wf)
     return softcap(logits, cfg.logit_softcap)
+
+
+def unembed_chunk(cfg, params, h):
+    return _unembed(cfg, h, _unembed_weight(cfg, params).float())
 
 
 def loss_from_hidden(cfg, params, hidden, labels):
     """Chunked next-token CE: prediction at position t scores labels[t+1].
-    labels == -1 are ignored. Never materializes (B,S,V)."""
+    labels == -1 are ignored. Never materializes (B,S,V). The unembedding
+    weight is cast to float32 once a call and that one copy serves every
+    chunk (autograd saves it once, not once a chunk)."""
     b, s, d = hidden.shape
+    wf = _unembed_weight(cfg, params).float()
     h = hidden[:, :-1]
     y = labels[:, 1:]
     sl = s - 1
@@ -380,7 +420,7 @@ def loss_from_hidden(cfg, params, hidden, labels):
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, sl, c):
         hc, yc = h[:, i:i + c], y[:, i:i + c]
-        logits = unembed_chunk(cfg, params, hc).float()
+        logits = _unembed(cfg, hc, wf)
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1,
                               yc.clamp(min=0).long()[..., None])[..., 0]
@@ -391,7 +431,9 @@ def loss_from_hidden(cfg, params, hidden, labels):
 
 
 def train_loss(cfg, params, batch):
-    """The training loss, forward only (no backward is ported)."""
+    """The training loss: next-token CE plus ``AUX_WEIGHT`` times the MoE
+    load-balance loss. Differentiable; ``launch/steps.py`` takes its
+    gradients."""
     hidden, labels, _, aux = forward_full(cfg, params, batch, collect=False)
     return loss_from_hidden(cfg, params, hidden, labels) + AUX_WEIGHT * aux
 

@@ -142,8 +142,10 @@ def moe_ffn_gather(cfg, p, x: torch.Tensor
     table[flat_slot] = tok
     filled = torch.zeros(trash + 1, dtype=torch.bool, device=x.device)
     filled[flat_slot] = True
-    wtab = torch.zeros(trash + 1, dtype=torch.float32, device=x.device)
-    wtab[flat_slot] = (weights * keep.to(weights.dtype)).reshape(-1)
+    # out of place: the router weights' gradient flows through wtab
+    wtab = torch.zeros(trash + 1, dtype=weights.dtype,
+                       device=x.device).index_put(
+        (flat_slot,), (weights * keep.to(weights.dtype)).reshape(-1))
 
     xe = xt[table[:trash]] * filled[:trash, None].to(xt.dtype)
     ye = _expert_ffn(cfg, p, xe.reshape(e, capacity, d))

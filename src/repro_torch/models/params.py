@@ -3,11 +3,14 @@
 
 The tree stays what JAX's is: nested dicts of tensors whose layer leaves
 are stacked on axis 0 (``blocks``: (L, ...); gemma2's ``local`` /
-``global`` pairs: (L/2, ...)). It is not an ``nn.Module``: the port only
-serves (no autograd, no optimizer state to register), the model's layer
-loop slices the stacked leaves directly, and a tree that matches JAX's key
-for key is what the weight bridge (``params_from_numpy``) and the parity
-tests compare. A module can wrap it when training is ported.
+``global`` pairs: (L/2, ...)). It is not an ``nn.Module``: the model's
+layer loop slices the stacked leaves directly, and a tree that matches
+JAX's key for key is what the weight bridge (``params_from_numpy``), the
+parity tests, the optimizer (``optim/adamw.py``, whose weight decay
+follows JAX's ``ndim >= 2`` rule on these stacked leaves) and the
+checkpoint (``checkpoint/ckpt.py``, leaves in JAX's order) walk. Training
+marks the leaves with :func:`trainable` and takes gradients with
+``torch.autograd.grad`` over them (``launch/steps.py``).
 
 ``init_params`` draws on the generator's device with the same
 distributions as JAX (truncated normal at +-2 times 1/sqrt(fan_in) for
@@ -34,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..tree import tree_leaves
 from .common import dense_init, embed_init, normal_init
 from .config import ModelConfig
 
@@ -331,20 +335,19 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     return params
 
 
+def trainable(params):
+    """Mark every floating leaf of ``params`` as requiring grad (in place)
+    and return the tree, unchanged in structure: JAX's, key for key, with
+    the layer leaves stacked."""
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point():
+            leaf.requires_grad_(True)
+    return params
+
+
 # ----------------------------------------------------------------- counting
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif tree is not None:
-        yield tree
-
-
 def count_params(tree) -> int:
-    return sum(int(math.prod(l.shape)) for l in _leaves(tree))
+    return sum(int(math.prod(l.shape)) for l in tree_leaves(tree))
 
 
 def count_params_config(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -1,4 +1,5 @@
-"""The port's ``ExecutablePool`` against the JAX package's on the CPU.
+"""The port's ``ExecutablePool``, ``StragglerPolicy`` and
+``speculative_map`` against the JAX package's on the CPU.
 
 Both pools are pure Python. Each test drives the two with the same
 sequence of calls and holds every result, the stored entries and the
@@ -12,7 +13,10 @@ import threading
 import pytest
 
 from repro.elastic import ExecutablePool as JaxPool
-from repro_torch.elastic import ExecutablePool, PoolEntry
+from repro.elastic import StragglerPolicy as JaxPolicy
+from repro.elastic import speculative_map as jax_speculative_map
+from repro_torch.elastic import (ExecutablePool, PoolEntry, StragglerPolicy,
+                                 speculative_map)
 
 
 def _both(**kw):
@@ -118,3 +122,40 @@ def test_pool_entry_matches_jax():
     e, j = PoolEntry("v", "generic", 0.5), JaxEntry("v", "generic", 0.5)
     assert (e.value, e.kind, e.compile_s, e.uses) == \
         (j.value, j.kind, j.compile_s, j.uses) == ("v", "generic", 0.5, 0)
+
+
+def test_straggler_policy_and_speculation():
+    """The port of ``tests/test_substrates.py::
+    test_straggler_policy_and_speculation``."""
+    pol = StragglerPolicy(threshold=2.0)
+    assert pol.detect([1.0, 1.1, 0.9, 5.0]) == [3]
+    assert pol.detect([1.0, 1.0]) == []
+
+    speeds = [1.0, 1.0, 1.0, 10.0]          # one 10x straggler
+    res_plain, t_plain, _ = speculative_map(
+        lambda t, w: (t, w), 8, speeds,
+        policy=StragglerPolicy(threshold=100.0))   # mitigation off
+    res_fix, t_fix, stats = speculative_map(
+        lambda t, w: (t, w), 8, speeds, policy=StragglerPolicy(2.0))
+    assert stats["backups"] >= 1
+    assert t_fix < t_plain                  # makespan improved
+    assert [r[0] for r in res_fix] == list(range(8))
+
+
+@pytest.mark.parametrize("speeds,n_tasks,threshold,min_samples", [
+    ([1.0, 1.0, 1.0, 10.0], 8, 2.0, 3), ([1.0, 3.0, 0.5], 11, 1.5, 3),
+    ([2.0, 2.0], 5, 2.0, 3), ([1.0, 1.0, 1.0, 10.0], 8, 100.0, 3),
+    ([0.0, 0.0, 1.0], 4, 2.0, 1)])
+def test_speculative_map_matches_jax(speeds, n_tasks, threshold,
+                                     min_samples):
+    calls, jcalls = [], []
+    got = speculative_map(lambda t, w: calls.append((t, w)) or (t, w),
+                          n_tasks, speeds,
+                          StragglerPolicy(threshold, min_samples))
+    want = jax_speculative_map(lambda t, w: jcalls.append((t, w)) or (t, w),
+                               n_tasks, speeds,
+                               JaxPolicy(threshold, min_samples))
+    assert got == want and calls == jcalls
+    durations = [speeds[i % len(speeds)] for i in range(n_tasks)]
+    assert StragglerPolicy(threshold, min_samples).detect(durations) \
+        == JaxPolicy(threshold, min_samples).detect(durations)

@@ -1038,3 +1038,117 @@ def test_sharded_table_routes_equal_simulated_dkv_gets(cuda):
     for (v, f), n in ((small, 512), (full, len(queries))):
         np.testing.assert_array_equal(f.cpu().numpy(), want_f[:n])
         np.testing.assert_array_equal(v.cpu().numpy(), want_v[:n])
+
+
+# ----------------------------------------------------------------- training
+def _grads_of(fn, ins, cots):
+    ins = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cots)
+    return [o.detach() for o in outs], [t.grad for t in ins]
+
+
+def _bits(t):
+    view = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    return t.view(view)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True), dict(causal=False), dict(causal=True, window=40),
+    dict(causal=True, cap=20.0), dict(causal=False, kv_len=70),
+    dict(causal=True, q0=30)], ids=lambda kw: "-".join(kw))
+def test_flash_autograd_route_gradients_equal_plain(cuda, kw, dtype):
+    """The kernel's autograd ``Function`` on the card: its forward launches
+    the route, and its gradients equal the plain version's own autograd
+    gradients bit for bit (the backward recomputes through it)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, hq, hkv, s, d = 2, 6, 2, 96, 64
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda) \
+        .to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    do = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+    _build.launches.clear()
+    got_o, got = _grads_of(lambda *a: flash_ops.flash_attention(*a, **kw),
+                           (q, k, v), (do,))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {flash_route(dtype, d): 1}
+    want_o, want = _grads_of(lambda *a: flash_attention_ref(*a, **kw),
+                             (q, k, v), (do,))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got_o[0], want_o[0], atol=tol, rtol=tol)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wkv_autograd_route_gradients_equal_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, h, s, d = 2, 4, 64, 64
+    dt = getattr(torch, dtype)
+    r, k, v = ((torch.randn((b, s, h, d), generator=gen, device=cuda) * 0.4)
+               .to(dt).transpose(1, 2) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(
+        (b, h, s, d), generator=gen, device=cuda) * 0.3 - 0.6), -4.25, -1e-6)
+    u = torch.randn((h, d), generator=gen, device=cuda) * 0.3
+    state = torch.randn((b, h, d, d), generator=gen, device=cuda) * 0.5
+    do = torch.randn((b, h, s, d), generator=gen, device=cuda).to(dt)
+    dstate = torch.randn((b, h, d, d), generator=gen, device=cuda)
+    ins = (r, k, v, logw, u, state)
+    _build.launches.clear()
+    got_o, got = _grads_of(lambda *a: wkv_ops.wkv_with_state(*a), ins,
+                           (do, dstate))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv_split": 1}
+    want_o, want = _grads_of(lambda *a: wkv_chunked_ref(*a), ins,
+                             (do, dstate))
+    tol = 2e-2 if dtype == "bfloat16" else 5e-4
+    torch.testing.assert_close(got_o[0], want_o[0], atol=tol, rtol=tol)
+    torch.testing.assert_close(got_o[1], want_o[1], atol=1e-3, rtol=1e-3)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def test_qwen2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 ``make_train_step`` of qwen2's smoke config on the card
+    against the same step on the CPU, from the same parameters and batch:
+    the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    largest element (the float32 tolerance of the model tests; summation
+    order differs), the params after the step within 2 lr + 1e-5 (Adam's
+    first step moves an element by lr * sign(g), and a gradient near 0 may
+    take either sign). The card's step launches ``flash_attention`` twice a
+    layer (the forward and remat's rerun) and nothing else."""
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import train_loss, trainable
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+                              dtype="float32")
+    host = init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = next(SyntheticLM(cfg.vocab, 128, 4, seed=0))
+    hb, cb = to_device(batch, "cpu"), to_device(batch, cuda)
+
+    def grads(params, b):
+        leaves = tree_leaves(trainable(params))
+        return torch.autograd.grad(train_loss(cfg, params, b), leaves)
+
+    for g, w in zip(grads(card, cb), grads(host, hb)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    lr = 3e-4
+    step = make_train_step(cfg, lr=lr)
+    want_loss, host, _ = step(host, adamw_init(host), hb)
+    _build.launches.clear()
+    loss, card, state = step(card, adamw_init(card), cb)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention": 2 * cfg.n_layers}
+    assert int(state.step) == 1
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for p, w in zip(tree_leaves(card), tree_leaves(host)):
+        torch.testing.assert_close(p.detach().cpu(), w.detach(), rtol=0,
+                                   atol=2 * lr + 1e-5)

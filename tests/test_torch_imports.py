@@ -39,7 +39,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.models.moe, repro_torch.models.mla\n"
             "import repro_torch.models.mamba2\n"
             "import repro_torch.elastic, repro_torch.launch.steps\n"
-            "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.launch.train\n"
+            "import repro_torch.optim, repro_torch.data, repro_torch.tree\n"
+            "import repro_torch.checkpoint, repro_torch.distributed\n"
+            "import repro_torch.distributed.compression\n"
             "from repro_torch.configs import all_archs, get_config\n"
             "[get_config(a) for a in all_archs()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -76,6 +79,20 @@ def test_tables_default_to_the_card(make):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.parametrize("entry", ["data", "train"])
+def test_training_entry_points_default_to_the_card(entry):
+    from repro_torch.data import to_device
+    from repro_torch.launch.train import run
+    call = {"data": lambda: to_device({"tokens": [[1, 2]]})["tokens"],
+            "train": lambda: run("qwen2_0_5b", True, 1, 2, 8, None)}[entry]
+    if torch.cuda.is_available():
+        out = call()
+        assert out.device.type == "cuda" if entry == "data" else len(out) == 1
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_resolve_device():
