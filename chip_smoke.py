@@ -3,9 +3,10 @@
 RACE-table lookup, the serverless chain hop, model serving (prefill and
 decode) for qwen2-0.5b, rwkv6-7b, olmoe-1b-7b, deepseek-v2-236b (4 of its
 60 layers), zamba2-1.2b and seamless-m4t-medium, training (qwen2-0.5b at full
-size, rwkv6-7b at full width and 4 of its 32 layers, with a checkpoint and a
-resume), and the elastic KV service (dkv) with its device shard map; then the
-invocation gateway on the host.
+size, rwkv6-7b at full width and 4 of its 32 layers, each with a checkpoint
+and a resume bit for bit, then qwen2-0.5b under ``ElasticTrainer``, a pool
+hit against a cold build), and the elastic KV service (dkv) with its device
+shard map; then the invocation gateway on the host.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -166,7 +167,8 @@ plain version):
 11. Training path. First the kernels' autograd ``Function``s at the train
     shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
     train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
-    causal; ``flash_attention`` in float32 at (1, 14, 512, 64), causal and
+    causal, and at the elastic phase's, q (4, 14, 1,024, 64) and k/v
+    (4, 2, 1,024, 64); ``flash_attention`` in float32 at (1, 14, 512, 64), causal and
     with a window, a softcap, ``kv_len`` and ``q0 > 0``; ``wkv_split`` at
     (2, 64, 1,024, 64) with bf16 r/k/v views and float32 logw from a
     non-zero state, cotangents on ``o`` and the final state. The forward
@@ -185,7 +187,15 @@ plain version):
     for bit the saved tree: params, mu, nu, step) and steps 5-8 taken again;
     rwkv6-7b at full width and 4 of its 32 layers (``reduced``: all 32 with
     float32 moments need ~91 GB), its grad_accum of 2, 4 x 1,024 tokens a
-    step, 4 steps. The phase runs in a process of its own
+    step, 4 steps, the same with a checkpoint after step 2 and steps 3-4
+    again (each model's checkpoint in a directory of its own, removed after
+    the model). Then the elastic trainer (``elastic_phase``): qwen2-0.5b as
+    above at 4 x 1,024 tokens a step, the first batch also the example
+    batch; trainer H (ladder (1,)) ``prewarm``s, and its ``scale_to(1)``
+    must be a generic pool hit with no build; trainer C (no ladder) must
+    build once in a cold ``scale_to(1)``; each then takes the same 3 steps
+    from the same initial state and scales to 1 again on the state it
+    holds. The phase runs in a process of its own
     (``chip_smoke.py --train``, started by the script) with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which cuBLAS needs under
     ``torch.use_deterministic_algorithms`` and which makes every cuBLAS
@@ -193,20 +203,26 @@ plain version):
     run under ``torch.use_deterministic_algorithms(True, warn_only=True)``.
     Gates: the
     gradients of one batch are finite and not all zero in every leaf; every
-    loss is finite; qwen2's mean loss of steps 6-8 lies below step 1's; the
-    resumed losses equal the straight run's bit for bit when no op warned of
-    a missing deterministic implementation (else within 1e-3 relative, and
-    the print names the ops); each step launches exactly what the code
+    loss is finite; qwen2's mean loss of steps 6-8 lies below step 1's; no
+    op of the steps warns of a missing deterministic implementation, and
+    each model's resumed losses equal the straight run's bit for bit; the
+    elastic trainers' kinds and builds as above, no op warning, H's losses
+    equal C's bit for bit, each trainer's second ``scale_to(1)`` a hit
+    with no build; each step launches exactly what the code
     implies (``train_launches``): the forward's kernel calls once a
     microbatch and once more where remat reruns the layer in the backward,
     so 48 ``flash_attention_mma`` (qwen2: 24 + 24) and 16 ``wkv_split``
     (rwkv6: 4 layers x 2 microbatches x 2) and nothing else (the backward's
-    recompute launches no kernel). Printed: the step time (median of steps
+    recompute launches no kernel), 48 ``flash_attention_mma`` too in each
+    elastic step. Printed: the step time (median of steps
     2-8, host clock ending in a synchronize) and tokens/s, the card's busy
     time and idle share over one more step with the top device functions
     (``torch.profiler``), the peak allocated memory, the share of the step
     spent in the backward's plain recompute (recomputes a step x the
-    recompute's device time / the step time), and the phase's wall time.
+    recompute's device time / the step time), the elastic trainers'
+    ``control_s`` (hit, cold, and each second ``scale_to`` on a drawn
+    state), H's ``compile_s`` and their step time,
+    beside the card's name and power limit, and the phase's wall time.
 12. Elastic KV path (``repro_torch.dkv`` over the simulated fabric):
     ``DkvService`` on 3 memory nodes and 4 compute nodes, 8 shards x
     131,071 buckets x 8 slots (128 MiB of simulated store; the
@@ -241,8 +257,8 @@ plain version):
     window.
 14. A ``{"kernels": [...]}`` line with every C entry point (its launches
     are those of every main-path run above: lookups, chain hops, prefills,
-    the float32 consistency prefills, the train steps and the dkv mirror's
-    lookups; each
+    the float32 consistency prefills, the train and elastic steps and the
+    dkv mirror's lookups; each
     entry point but ``wkv`` and the device route of ``chunk_gather`` must
     have launched there), then as the last line ``{"ok": true, "device":
     {...}}``.
@@ -270,6 +286,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -282,7 +299,7 @@ from repro_torch.core import (  # noqa: E402
     VerbsProcess, WorkRequest, make_cluster)
 from repro_torch.dkv import (  # noqa: E402
     DkvClient, DkvService, PullQueue, WorkerPullAutoscaler, shard_key)
-from repro_torch.elastic import ExecutablePool  # noqa: E402
+from repro_torch.elastic import ElasticTrainer, ExecutablePool  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -423,11 +440,15 @@ ROUTING_TIE = 1e-4
 #: fit one card and the run's time), 8 steps, a checkpoint after step 4 and
 #: steps 5-8 again from it; rwkv6-7b at full width, 4 of its 32 layers (all
 #: 32 with float32 moments need ~7.6 G x 12 B = 91 GB), its grad_accum of 2,
-#: 4 x 1,024 tokens a step (two microbatches of 2), 4 steps
+#: 4 x 1,024 tokens a step (two microbatches of 2), 4 steps, a checkpoint
+#: after step 2 and steps 3-4 again from it
 TRAIN_SIZE = (dict(arch="qwen2_0_5b", batch=4, seq=4096, steps=8,
                    resume_at=4, descent=True, route="flash_attention_mma"),
               dict(arch="rwkv6_7b", batch=4, seq=1024, steps=4,
-                   route="wkv_split", n_layers=4))
+                   resume_at=2, route="wkv_split", n_layers=4))
+#: the elastic trainer: qwen2-0.5b at full size as the train phase builds it
+#: (bf16, remat "block"), 4 x 1,024 tokens a step, 3 steps a trainer
+ELASTIC_SIZE = dict(arch="qwen2_0_5b", batch=4, seq=1024, steps=3, seed=0)
 #: where the train phase writes its checkpoint and its results (removed
 #: after the phase)
 TRAIN_CKPT_DIR = ROOT / "_train_ckpt"
@@ -482,12 +503,18 @@ def check(cond, what: str) -> None:
 
 
 # ------------------------------------------------------ 1. device report
-def device_report() -> None:
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_report() -> None:
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device_count {torch.cuda.device_count()}; "
           f"{torch.cuda.get_device_name(0)}")
@@ -2528,11 +2555,12 @@ def train_model(device, *, arch, batch, seq, steps, route, resume_at=None,
     else, and every loss be finite. With ``resume_at``: ``save_async`` of
     (params, AdamWState) after that step, then ``wait``; after the run,
     restore it into a freshly drawn template (bit for bit equal to the
-    saved tree) and take the remaining steps again from there: the losses
-    equal the straight run's, bit for bit when the steps ran under
-    ``torch.use_deterministic_algorithms`` with no warning, else within 1e-3
-    relative. With ``descent``: the mean loss of the last three steps lies
-    below the first step's. Then one more step under ``torch.profiler``."""
+    saved tree) and take the remaining steps again from there: no op may
+    warn under ``torch.use_deterministic_algorithms`` (one without a
+    deterministic implementation), and the losses equal the straight
+    run's bit for bit. With ``descent``: the mean loss of the last three
+    steps lies below the first step's. Then one more step under
+    ``torch.profiler``."""
     cfg, reduced = _cut(config(arch), n_layers)
     cuts = [f"global batch {TRAIN_4K.global_batch} -> {batch}"] \
         + ([reduced] if reduced else [])
@@ -2611,17 +2639,12 @@ def train_model(device, *, arch, batch, seq, steps, route, resume_at=None,
     if resumed:
         again = resumed[0]
         straight = losses[resume_at:]
-        exact = not nondeterministic
-        if exact:
-            check(again == straight, f"{arch}: resumed losses {again} != "
-                  f"straight {straight} (deterministic steps)")
-        else:
-            check(all(abs(a - b) <= 1e-3 * abs(b)
-                      for a, b in zip(again, straight)),
-                  f"{arch}: resumed losses {again} vs straight {straight}")
-        resume = dict(resumed_losses=again, bit_for_bit=exact,
-                      equal=again == straight,
-                      nondeterministic_ops=nondeterministic, **timing)
+        check(not nondeterministic, f"{arch}: ops without a deterministic "
+              f"implementation ran: {nondeterministic}")
+        check(again == straight, f"{arch}: resumed losses {again} != "
+              f"straight {straight} (deterministic steps)")
+        resume = dict(resumed_losses=again, bit_for_bit=True,
+                      equal=again == straight, **timing)
     step_ms = statistics.median(walls[1:]) if len(walls) > 1 else walls[0]
     batch_dev = next(iter(_batches(cfg, seq, batch, seed, steps, 1, device)))
     prof = profile_busy(lambda: step_fn(params, opt, batch_dev), device,
@@ -2646,13 +2669,9 @@ def train_model(device, *, arch, batch, seq, steps, route, resume_at=None,
              f"{timing['save_async_ms']:.3f} ms, written in "
              f"{timing['save_total_ms']:.3f} ms), restored bit for bit in "
              f"{timing['restore_ms']:.3f} ms; steps {resume_at + 1}-{steps} "
-             f"again: losses {resume['resumed_losses']}, "
-             + ("equal bit for bit (every op of the steps deterministic "
-                "under torch.use_deterministic_algorithms)" if resume
-                ["bit_for_bit"] else
-                f"within 1e-3 relative (equal: {resume['equal']}; ops without "
-                f"a deterministic implementation: {nondeterministic})")
-             if resume else ""))
+             f"again: losses {resume['resumed_losses']}, equal bit for bit "
+             f"(every op of the steps deterministic under "
+             f"torch.use_deterministic_algorithms)" if resume else ""))
     print(f"time train {arch}: step median {step_ms:.3f} ms over steps "
           f"2-{len(walls)} ({r['tokens_per_s']:.1f} tokens/s; walls "
           f"{[round(w, 3) for w in walls]} ms); peak allocated memory "
@@ -2695,10 +2714,12 @@ def _grads_of(fn, ins, cots):
 
 
 #: the autograd routes at the train phase's shapes (label, b, hq, hkv, s, d,
-#: dtype, keywords): qwen2's train shape on the tensor cores, then the
-#: float32 route with each keyword
+#: dtype, keywords): qwen2's train shape and the elastic phase's on the
+#: tensor cores, then the float32 route with each keyword
 GRAD_FLASH_CASES = (
     ("qwen2 train", 4, 14, 2, 4096, 64, "bfloat16", dict(causal=True)),
+    ("qwen2 elastic", ELASTIC_SIZE["batch"], 14, 2, ELASTIC_SIZE["seq"], 64,
+     "bfloat16", dict(causal=True)),
     ("causal", 1, 14, 2, 512, 64, "float32", dict(causal=True)),
     ("window", 1, 14, 2, 512, 64, "float32", dict(causal=True, window=128)),
     ("softcap", 1, 14, 2, 512, 64, "float32", dict(causal=True, cap=50.0)),
@@ -3359,27 +3380,170 @@ def _run_summary(r: dict) -> dict:
                 decode_idle_share=r["decode_profile"]["idle_share"])
 
 
+def elastic_phase(device, *, arch, batch, seq, steps, seed,
+                  config=get_config) -> dict:
+    """``ElasticTrainer`` on one card (one rank: a process group of this
+    process alone), the model as ``train_model`` builds it (drawn on
+    ``device`` from ``seed``, ``make_train_step`` at its default lr),
+    ``steps`` ``SyntheticLM`` batches of ``batch`` x ``seq``, the first
+    also the trainers' example batch. Trainer H has the ladder (1,):
+    ``prewarm`` builds it, then ``scale_to(1)`` must be a generic hit that
+    builds nothing; trainer C has no ladder: ``scale_to(1)`` must be cold
+    and build once. Then each takes the same steps from the same initial
+    state under ``torch.use_deterministic_algorithms``: no op may warn,
+    every loss is finite, H's losses equal C's bit for bit, and each step
+    launches exactly ``train_launches`` of the model's flash route, counted
+    from 0 just before the step and read just after. Then each scales to 1
+    again, on the state it holds: a pool hit with no build (H's generic,
+    C's the specialized entry its cold build left), whose ``control_s`` is
+    the bootstrap alone (the first ``scale_to`` also draws the initial
+    state)."""
+    cfg = config(arch)
+    on_card = torch.device(device).type == "cuda"
+    route = flash_route(cfg.param_dtype, cfg.d_head)
+    want = {route: train_launches(cfg)} if on_card else {}
+    batches = list(itertools.islice(SyntheticLM(cfg.vocab, seq, batch,
+                                                seed=seed), steps))
+    card = card_line() if on_card else "no card (CPU rehearsal)"
+
+    def make_step(mesh):
+        inner = make_train_step(cfg, mesh=mesh)
+
+        def step(state, b):
+            params, opt = state
+            loss, params, opt = inner(params, opt, b)
+            return loss, (params, opt)
+        return step
+
+    def init_state():
+        p = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                        device)
+        return (p, adamw_init(p))
+
+    def run(ladder):
+        tr = ElasticTrainer(cfg, make_step, init_state, ladder=ladder,
+                            example_batch=batches[0], device=device)
+        tr.prewarm()
+        prewarm_builds = tr.n_builds
+        ev = tr.scale_to(1)
+        losses, walls, launches = [], [], []
+        for b in batches:
+            _sync(device)
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(b))
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(_build.launches))
+        built = tr.n_builds
+        again = tr.scale_to(1)
+        out = dict(event=ev, prewarm_builds=prewarm_builds,
+                   scale_builds=built - prewarm_builds, again=again,
+                   again_builds=tr.n_builds - built,
+                   compile_s={str(k): e.compile_s
+                              for k, e in tr.pool._entries.items()},
+                   losses=losses, walls_ms=walls, launches=launches)
+        del tr
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    try:
+        with _deterministic() as nondeterministic:
+            hit, cold = run((1,)), run(())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    check(not nondeterministic, f"elastic {arch}: ops without a "
+          f"deterministic implementation ran: {nondeterministic}")
+    check(hit["prewarm_builds"] == 1 and hit["event"]["kind"] == "generic"
+          and hit["scale_builds"] == 0,
+          f"elastic {arch}: the ladder trainer's scale_to(1) was "
+          f"{hit['event']} after {hit['prewarm_builds']} prewarm builds, "
+          f"with {hit['scale_builds']} builds")
+    check(cold["prewarm_builds"] == 0 and cold["event"]["kind"] == "cold"
+          and cold["scale_builds"] == 1,
+          f"elastic {arch}: the trainer without a ladder's scale_to(1) was "
+          f"{cold['event']} with {cold['scale_builds']} builds")
+    for r, kind in ((hit, "generic"), (cold, "specialized")):
+        check(r["again"]["kind"] == kind and r["again_builds"] == 0,
+              f"elastic {arch}: scaling to 1 again was {r['again']} with "
+              f"{r['again_builds']} builds, expected a {kind} hit")
+    check(len(hit["losses"]) == len(cold["losses"]) == steps
+          and all(_bits_equal(a, b)
+                  for a, b in zip(hit["losses"], cold["losses"])),
+          f"elastic {arch}: the two trainers' losses differ: "
+          f"{[float(x) for x in hit['losses']]} vs "
+          f"{[float(x) for x in cold['losses']]}")
+    losses = [float(x) for x in hit["losses"]]
+    check(all(math.isfinite(x) for x in losses),
+          f"elastic {arch}: losses {losses}")
+    for name, r in (("H", hit), ("C", cold)):
+        for i, got in enumerate(r["launches"], 1):
+            check(got == want, f"elastic {arch} trainer {name} step {i} "
+                  f"launched {got}, expected {want}")
+        r["losses"] = [float(x) for x in r["losses"]]
+    step_ms = statistics.median(hit["walls_ms"][1:] + cold["walls_ms"][1:])
+    wall_s = time.perf_counter() - t0
+    print(f"elastic {arch} ({cfg.n_layers} layers, {cfg.dtype}, remat "
+          f"{cfg.remat}; {steps} steps of {batch} x {seq} tokens a trainer; "
+          f"on {card}): trainer H (ladder (1,)) prewarm built "
+          f"{hit['prewarm_builds']} in compile_s "
+          f"{hit['compile_s']} s, scale_to(1) {hit['event']['kind']} with "
+          f"{hit['scale_builds']} builds, control_s "
+          f"{hit['event']['control_s']:.6f} s; trainer C (no ladder) "
+          f"scale_to(1) {cold['event']['kind']} with {cold['scale_builds']} "
+          f"build, control_s {cold['event']['control_s']:.6f} s "
+          f"(compile_s {cold['compile_s']} s); losses {losses}, equal bit for "
+          f"bit in H and C; each step launched {hit['launches'][0]}; "
+          f"scale_to(1) again on the drawn state: H {hit['again']['kind']} "
+          f"control_s {hit['again']['control_s']:.6f} s, C "
+          f"{cold['again']['kind']} control_s "
+          f"{cold['again']['control_s']:.6f} s, no build")
+    print(f"time elastic {arch} on {card}: step median {step_ms:.3f} ms over "
+          f"steps 2-{steps} of both trainers (walls H "
+          f"{[round(w, 3) for w in hit['walls_ms']]}, C "
+          f"{[round(w, 3) for w in cold['walls_ms']]} ms); the phase "
+          f"{wall_s:.3f} s")
+    launches = collections.Counter()
+    for row in hit["launches"] + cold["launches"]:
+        launches.update(row)
+    return dict(arch=arch, n_layers=cfg.n_layers, batch=batch, seq=seq,
+                steps=steps, hit=hit, cold=cold, losses=losses,
+                step_ms=step_ms, wall_s=wall_s, launches=dict(launches),
+                card=card)
+
+
 def train_phase_child(device) -> int:
     """Phase 11 itself, run as ``chip_smoke.py --train`` by
     :func:`train_phase` (the kernels built already): the autograd routes,
-    each model's steps, the recompute's share; its results go to
-    ``TRAIN_CKPT_DIR / "result.json"``."""
+    each model's steps (its checkpoint in a directory of its own, removed
+    after the model), the recompute's share, then the elastic trainer; its
+    results go to ``TRAIN_CKPT_DIR / "result.json"``."""
     t0 = time.perf_counter()
     grads = train_kernel_grads(device)
-    training = {m["arch"]: train_model(device, **m,
-                                       ckpt_dir=str(TRAIN_CKPT_DIR))
-                for m in TRAIN_SIZE}
+    training = {}
+    for m in TRAIN_SIZE:
+        ckpt = TRAIN_CKPT_DIR / m["arch"]
+        training[m["arch"]] = train_model(device, **m, ckpt_dir=str(ckpt))
+        shutil.rmtree(ckpt, ignore_errors=True)
     recompute = train_recompute_share(training, grads)
+    elastic = elastic_phase(device, **ELASTIC_SIZE)
+    TRAIN_CKPT_DIR.mkdir(parents=True, exist_ok=True)
     print(f"train phase wall time {time.perf_counter() - t0:.3f} s "
           f"(its own process, with {TRAIN_ENV})", flush=True)
     (TRAIN_CKPT_DIR / "result.json").write_text(json.dumps(dict(
-        grads=grads, training=training, recompute=recompute)))
+        grads=grads, training=training, recompute=recompute,
+        elastic=elastic)))
     return 0
 
 
 def train_phase() -> tuple:
     """Run phase 11 in a child process with ``TRAIN_ENV`` (see there) and
-    return its (grads, training, recompute); fails if the child fails.
+    return its (grads, training, recompute, elastic); fails if the child
+    fails.
     The checkpoint directory is removed either way."""
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
     sys.stdout.flush()
@@ -3392,7 +3556,7 @@ def train_phase() -> tuple:
         out = json.loads((TRAIN_CKPT_DIR / "result.json").read_text())
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
-    return out["grads"], out["training"], out["recompute"]
+    return out["grads"], out["training"], out["recompute"], out["elastic"]
 
 
 def train_recompute_share(training: dict, grads: dict) -> dict:
@@ -3434,6 +3598,17 @@ def _train_summary(r: dict, recompute: dict) -> dict:
     return dict({k: r[k] for k in keys}, **recompute,
                 idle_share=r["profile"]["idle_share"],
                 busy_ms=r["profile"]["busy_ms"])
+
+
+def _elastic_summary(r: dict) -> dict:
+    """The elastic phase's numbers, for the ``kernels`` line."""
+    return dict({k: r[k] for k in ("n_layers", "batch", "seq", "steps",
+                                   "losses", "step_ms", "launches")},
+                hit_control_s=r["hit"]["event"]["control_s"],
+                cold_control_s=r["cold"]["event"]["control_s"],
+                again_control_s=[r[k]["again"]["control_s"]
+                                 for k in ("hit", "cold")],
+                compile_s=r["hit"]["compile_s"])
 
 
 # ------------------------------------------------------------------- main
@@ -3502,7 +3677,7 @@ def main(argv) -> int:
         errs[r["route"]] = max(errs[r["route"]], r["max_abs_err"])
     model_times = measure_model_kernels(device, flash_shapes)
     ptxas = ptxas_phase()
-    grads, training, recompute = train_phase()
+    grads, training, recompute, elastic = train_phase()
     for route, rows in grads.items():
         errs[route] = max([errs[route]] + [r["max_abs_err"] for r in rows])
     dkv = dkv_phase(device, **DKV_SIZE)
@@ -3557,13 +3732,15 @@ def main(argv) -> int:
         launches.update(row["launches"])
     for row in training.values():
         launches.update(row["launches"])
+    launches.update(elastic["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
     by_arch = {row["arch"]: row for row in consistent}
     kernels = []
     model_runs = {"flash_attention_mma": dict(
                       serve=qwen2, train=_train_summary(
                           training["qwen2_0_5b"], recompute["qwen2_0_5b"]),
-                      grad=grads["flash_attention_mma"]),
+                      grad=grads["flash_attention_mma"],
+                      elastic=_elastic_summary(elastic)),
                   "flash_attention": dict(consistency=by_arch["qwen2_0_5b"],
                                           grad=grads["flash_attention"]),
                   "wkv_split": dict(serve=rwkv6,

@@ -22,12 +22,14 @@ easy to find. Ported so far (see ``README.md`` beside this file):
                              ``init_params`` and the JAX weight bridge
   kernels/flash_attention/   blockwise GQA attention in CUDA C++ (prefill)
   kernels/rwkv6/             the chunked RWKV-6 WKV scan in CUDA C++
-  elastic/, launch/          ``ExecutablePool``, straggler mitigation,
-                             the train, prefill and decode steps,
-                             ``ServingWorker``, the training loop
+  elastic/, launch/          ``ExecutablePool``, ``ElasticTrainer``,
+                             straggler mitigation, the meshes, the train,
+                             prefill and decode steps and their input
+                             specs, ``ServingWorker``, the training loop
   optim/, data/, checkpoint/ AdamW, the synthetic data feed, checkpoints
                              in the reference's format
-  distributed/               int8 gradient compression and its all-reduce
+  distributed/               the sharding plans and their placements,
+                             int8 gradient compression and its all-reduce
 """
 
 from .device import resolve_device

@@ -1,10 +1,10 @@
-"""Elastic runtime pieces of the port: the executable pool that serving
-workers bootstrap from, and straggler mitigation (``StragglerPolicy``,
-``speculative_map``). ``ElasticTrainer`` waits for the sharding plans of
-ROADMAP Queue 1 item 9."""
+"""Elastic runtime of the port: the executable pool that serving workers
+bootstrap from, ``ElasticTrainer`` (data parallel over a mesh of the first
+n ranks, rescaled through the pool), and straggler mitigation
+(``StragglerPolicy``, ``speculative_map``)."""
 
-from .runtime import (ExecutablePool, PoolEntry, StragglerPolicy,
-                      speculative_map)
+from .runtime import (ElasticTrainer, ExecutablePool, PoolEntry,
+                      StragglerPolicy, speculative_map)
 
-__all__ = ["ExecutablePool", "PoolEntry", "StragglerPolicy",
-           "speculative_map"]
+__all__ = ["ExecutablePool", "ElasticTrainer", "PoolEntry",
+           "StragglerPolicy", "speculative_map"]

@@ -1,15 +1,29 @@
-"""The elastic runtime's pure Python parts (the counterpart of
-``repro/elastic/runtime.py``): ``PoolEntry`` and ``ExecutablePool``, and
-the straggler mitigation ``StragglerPolicy`` / ``speculative_map``,
-copied. ``ElasticTrainer`` waits for the sharding plans of ROADMAP Queue 1
-item 9: its meshes, its ahead-of-time builds with input and output
-shardings and its resharding on a scale event belong to them.
+"""Elastic runtime: the paper's control plane mapped onto training jobs
+(the counterpart of ``repro/elastic/runtime.py``).
 
-In JAX the pool caches compiled ``jit`` executables. PyTorch runs eagerly,
-so the port's serving workers store the plain step callable; the pool's
-``get`` / ``put`` / ``specialize_async`` semantics (the paper's hybrid
-pool: a generic entry now, a specialised one built in the background) are
-unchanged.
+KRCORE's structure transfers one-to-one:
+
+  hybrid QP pool          -> ``ExecutablePool``: generic ladder-built steps
+                             (DC analogue: usable for ANY worker count in
+                             the ladder) + specialized per-exact-config
+                             entries (RC analogue) built in the background.
+  worker bootstrap        -> attach to pre-built pool state instead of a
+                             cold mesh formation and build.
+
+``PoolEntry``, ``ExecutablePool``, ``StragglerPolicy`` and
+``speculative_map`` are pure Python, copied. In JAX the pool caches compiled
+``jit`` executables; PyTorch runs eagerly, so serving workers store the
+plain step callable and ``ElasticTrainer`` a (mesh, step) pair.
+
+**What a build is in torch** (``ElasticTrainer``): the ``DeviceMesh`` over
+the first n ranks with its process groups, the step made under that mesh
+(``make_step(mesh)``), and, when the trainer has an example batch, one
+warm-up step on a throwaway state from ``init_state()`` at that batch's
+shape, on every rank of the mesh. The warm-up stands where JAX's
+``lower().compile()`` stands: it connects the data group's communicator
+(its first all-reduce), loads every kernel and library handle the step
+launches and fills the allocator's cache, and it costs a train step. A
+pool hit skips all of it; the trainer counts its builds (``n_builds``).
 """
 
 from __future__ import annotations
@@ -20,6 +34,13 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..device import resolve_device
+from ..launch.mesh import ensure_process_group, set_mesh
+from ..tree import tree_leaves
 
 
 # =========================================================== executable pool
@@ -154,3 +175,159 @@ def speculative_map(task_fn: Callable[[int, int], Any], n_tasks: int,
             backups += 1
     makespan = max(finish)
     return results, makespan, {"backups": backups}
+
+
+# ============================================================ elastic trainer
+class ElasticTrainer:
+    """Data-parallel trainer whose worker count can change between steps.
+
+    Scale events go through the KRCORE-style control plane: a lookup in the
+    pool (generic hit = microsecond-scale bootstrap; miss = a build, charged
+    to the event and recorded), then the state's redistribution onto the new
+    mesh, replicated (``P()``).
+
+    Ranks, not devices: the workers are the ranks of the default process
+    group (started for this process alone if there is none, see
+    ``launch.mesh.ensure_process_group``). Every rank constructs the trainer
+    and makes the same calls in the same order (a mesh's process groups are
+    made by all ranks together); the mesh of n workers is the first n
+    ranks, and a rank outside it keeps its copy of the state and takes no
+    step (``train_step`` returns None there). ``make_step(mesh)`` returns
+    ``step(state, batch) -> (loss, state)`` for this rank's block of the
+    batch; ``make_train_step(cfg, mesh=mesh)`` inside it averages over the
+    mesh's "data" group (the trainer also calls ``make_step`` under
+    ``set_mesh(mesh)``, the default of that argument). ``init_state()``
+    gives the state on ``device`` (default: the CUDA card), the same on
+    every rank.
+    """
+
+    def __init__(self, cfg, make_step: Callable[[Any], Any],
+                 init_state: Callable[[], Any], ladder: Sequence[int] = (),
+                 example_batch: Optional[Dict[str, np.ndarray]] = None,
+                 device=None):
+        self.cfg = cfg
+        self.make_step = make_step
+        self.device = resolve_device(device)
+        ensure_process_group(self.device)
+        self.world = dist.get_world_size()
+        self.pool = ExecutablePool(coarsen=self._coarsen)
+        self.events: List[Dict] = []
+        self.n_workers = 0
+        self.n_builds = 0
+        self.state = None
+        self._step_fn = None
+        self._mesh = None
+        self._ladder = tuple(ladder)
+        self._init_state = init_state
+        self._example_batch = example_batch
+
+    # -- control plane -----------------------------------------------------
+    @staticmethod
+    def _coarsen(key):
+        """Generic key: ladder builds serve any count of that size."""
+        return ("ladder", key[1])
+
+    def _mesh_for(self, n: int) -> DeviceMesh:
+        if not 1 <= n <= self.world:
+            raise ValueError(f"{n} workers, the process group has "
+                             f"{self.world} ranks")
+        return DeviceMesh(self.device.type, torch.arange(n).reshape(n, 1),
+                          mesh_dim_names=("data", "model"))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _shard_batch(self, batch, mesh) -> Dict[str, torch.Tensor]:
+        """This rank's block of each global batch entry, split on "data"
+        (``P("data", None, ...)``: the mesh is (n, 1)), on the trainer's
+        device."""
+        parts, row = mesh.size(0), mesh.get_coordinate()[0]
+        out = {}
+        for k, v in batch.items():
+            t = v if isinstance(v, torch.Tensor) \
+                else torch.as_tensor(np.asarray(v))
+            if t.shape[0] % parts:
+                raise ValueError(f"{k}: {t.shape[0]} rows do not split "
+                                 f"over {parts} ranks")
+            out[k] = t.chunk(parts, dim=0)[row].to(self.device)
+        return out
+
+    @torch.no_grad()
+    def _redistribute(self, state, mesh):
+        """Every leaf replicated over ``mesh`` from its first rank (spec
+        ``P()``), in place: the leaves of one dtype go as one flat buffer,
+        one broadcast on the "data" group. A mesh of one rank moves
+        nothing."""
+        if mesh.size() == 1:
+            return state
+        group = mesh.get_group("data")
+        leaves = tree_leaves(state)
+        for dtype in sorted({t.dtype for t in leaves}, key=str):
+            same = [t for t in leaves if t.dtype == dtype]
+            flat = torch.cat([t.detach().reshape(-1) for t in same])
+            dist.broadcast(flat, group_src=0, group=group)
+            at = 0
+            for t in same:
+                t.copy_(flat[at:at + t.numel()].view(t.shape))
+                at += t.numel()
+        return state
+
+    def _builder(self, n: int):
+        def build():
+            mesh = self._mesh_for(n)
+            with set_mesh(mesh):
+                step = self.make_step(mesh)
+                if self._example_batch is not None \
+                        and mesh.get_coordinate() is not None:
+                    # the warm-up step (see the module docstring)
+                    step(self._init_state(),
+                         self._shard_batch(self._example_batch, mesh))
+                    self._sync()
+            self.n_builds += 1
+            return (mesh, step)
+        return build
+
+    def prewarm(self) -> None:
+        """Boot-time ladder builds (the statically-initialized DCQPs)."""
+        for n in self._ladder:
+            key = ("ladder", n)
+            t0 = time.perf_counter()
+            self.pool.put(key, self._builder(n)(), kind="generic",
+                          compile_s=time.perf_counter() - t0)
+
+    def scale_to(self, n: int) -> Dict:
+        """Elastic resize; returns the timing event (the paper's metric)."""
+        t0 = time.perf_counter()
+        key = ("exact", n)
+        kind, entry = self.pool.get(key)
+        if entry is None:
+            # miss: build now (the Verbs-analogue cold path), measured
+            entry = self._builder(n)()
+            self.pool.put(key, entry, compile_s=time.perf_counter() - t0)
+            kind = "cold"
+        mesh, fn = entry
+        if self.state is None:
+            with set_mesh(mesh):
+                self.state = self._init_state()
+        if mesh.get_coordinate() is not None:
+            # state redistribution (weights replicated onto the new mesh)
+            self.state = self._redistribute(self.state, mesh)
+        self._sync()
+        self._mesh, self._step_fn = mesh, fn
+        old_n, self.n_workers = self.n_workers, n
+        ev = {"kind": kind, "from": old_n, "to": n,
+              "control_s": time.perf_counter() - t0}
+        self.events.append(ev)
+        return ev
+
+    # -- data plane ---------------------------------------------------------
+    def train_step(self, batch) -> Optional[torch.Tensor]:
+        """One step on the global ``batch`` (numpy arrays or tensors), each
+        rank of the mesh on its block; the loss, or None on a rank outside
+        the mesh."""
+        if self._mesh.get_coordinate() is None:
+            return None
+        loss, self.state = self._step_fn(
+            self.state, self._shard_batch(batch, self._mesh))
+        return loss

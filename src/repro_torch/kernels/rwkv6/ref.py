@@ -13,6 +13,21 @@ from __future__ import annotations
 import torch
 
 
+def inclusive_scan(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sums of ``x`` along ``dim`` in a fixed order on any
+    device: ceil(log2 n) shifted adds (Hillis-Steele), each an elementwise
+    add in ``x``'s dtype. torch's float ``cumsum`` has no deterministic CUDA
+    implementation, and a product with a ones mask would follow the TF32
+    setting; these adds are exact in float32 and the same on every run."""
+    n = x.shape[dim]
+    shift = 1
+    while shift < n:
+        pad = x.new_zeros(x.shape[:dim] + (shift,) + x.shape[dim + 1:])
+        x = x + torch.cat([pad, x.narrow(dim, 0, n - shift)], dim=dim)
+        shift *= 2
+    return x
+
+
 def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 16):
     """Chunked WKV scan from ``state``. Returns (o (B,H,S,dv), final state
     (B,H,dk,dv) float32). S must be a multiple of min(chunk, S)."""
@@ -28,11 +43,12 @@ def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 16):
     uf = u.float()
     tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
                                 device=r.device), diagonal=-1)
+    Lx_all = inclusive_scan(lw, dim=3)     # in-chunk prefix sums, all chunks
     S = state.float()
     outs = []
     for i in range(n):
         rc, kc, vc, lwc = rf[:, :, i], kf[:, :, i], vf[:, :, i], lw[:, :, i]
-        Lx = torch.cumsum(lwc, dim=2)                          # inclusive
+        Lx = Lx_all[:, :, i]                                   # inclusive
         Lex = Lx - lwc                                         # exclusive
         r_dec = rc * torch.exp(Lex)                            # r_t e^{L_t}
         k_inc = kc * torch.exp(-Lx)                    # k_s e^{-L_{s+1}}

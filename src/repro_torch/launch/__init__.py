@@ -1,3 +1,3 @@
 """Entry points of the port: the train / prefill / decode step factories
-(``steps.py``), the training loop (``train.py``) and batched greedy
-serving (``serve.py``)."""
+and the input specs (``steps.py``), the meshes (``mesh.py``), the training
+loop (``train.py``) and batched greedy serving (``serve.py``)."""

@@ -1,19 +1,44 @@
-"""Step functions, train / prefill / decode (the counterpart of
-``repro/launch/steps.py``). PyTorch runs eagerly, so a step is the plain
-callable JAX would ``jit``. The input specs (``ShapeDtypeStruct`` stand-ins
-for the dry run) wait for the dry-run slice (ROADMAP Queue 1 item 9)."""
+"""Step functions, train / prefill / decode, and the input specs of every
+(architecture x shape) cell (the counterpart of ``repro/launch/steps.py``).
+PyTorch runs eagerly, so a step is the plain callable JAX would ``jit``;
+the input specs are meta-device tensors where JAX has
+``ShapeDtypeStruct``s: shapes and dtypes, no memory."""
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
+import torch.distributed as dist
 
-from ..models import prefill, train_loss, trainable
+from ..models import init_decode_cache, init_params, prefill, train_loss, \
+    trainable
+from ..models.config import SHAPES_BY_NAME, ShapeSpec
 from ..models.model import decode_step as _decode_step
-from ..optim import adamw_update, clip_by_global_norm
+from ..optim import adamw_init, adamw_update, clip_by_global_norm
 from ..tree import tree_leaves, tree_unflatten
+from .mesh import current_mesh
+
+ENC_LEN_FOR_DECODE = 4096        # encdec decode cells: stub memory length
 
 
-def make_train_step(cfg, lr: float = 3e-4):
+def _data_mean(loss, grads, group):
+    """The mean of ``loss`` and of each gradient over the ranks of
+    ``group``, summed in float32 in one all-reduce of a flat buffer; each
+    gradient keeps its dtype."""
+    n = dist.get_world_size(group)
+    flat = torch.cat([loss.reshape(1).float()]
+                     + [g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    out, at = [], 1
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    return flat[0].clone(), out
+
+
+def make_train_step(cfg, lr: float = 3e-4, mesh=None):
     """(params, opt_state, batch) -> (loss, params, opt_state).
 
     ``torch.autograd.grad`` of ``train_loss`` over every leaf of
@@ -21,11 +46,24 @@ def make_train_step(cfg, lr: float = 3e-4):
     the batch is split into that many microbatches along axis 0, taken in
     order: their float32 gradients are summed and divided by the count,
     and the loss is the mean of theirs, in the reference's order of
-    operations. Then ``clip_by_global_norm(grads, 1.0)`` and
+    operations. Data parallel: with a ``mesh`` (by default the one of an
+    enclosing ``launch.mesh.set_mesh`` block, if any), ``batch`` is this
+    rank's block of the global batch, and the loss and the gradients are
+    averaged over the mesh's "data" group, as JAX's step on a batch sharded
+    over "data" under its ambient mesh computes them (a group of one rank
+    has nothing to average; on a rank outside the mesh the step raises
+    ``RuntimeError``). Then ``clip_by_global_norm(grads, 1.0)`` and
     ``adamw_update``, which updates ``params`` and ``opt_state`` in place
     (see ``optim/adamw.py``). The loss comes back as a 0-d float32
     tensor."""
     accum = max(cfg.grad_accum, 1)
+    mesh = current_mesh() if mesh is None else mesh
+    outside = mesh is not None and mesh.get_coordinate() is None
+    group = None
+    if mesh is not None and not outside:
+        group = mesh.get_group("data")
+        if dist.get_world_size(group) == 1:
+            group = None
 
     def grads_of(params, leaves, batch):
         loss = train_loss(cfg, params, batch)
@@ -34,6 +72,8 @@ def make_train_step(cfg, lr: float = 3e-4):
         return loss.detach(), grads
 
     def step(params, opt_state, batch):
+        if outside:
+            raise RuntimeError("this rank is not in the step's mesh")
         leaves = tree_leaves(trainable(params))
         if accum == 1:
             loss, grads = grads_of(params, leaves, batch)
@@ -53,6 +93,8 @@ def make_train_step(cfg, lr: float = 3e-4):
                 del g
             loss = loss_sum / accum
             grads = [g / accum for g in grads]
+        if group is not None:
+            loss, grads = _data_mean(loss, grads, group)
         grads, _ = clip_by_global_norm(tree_unflatten(params, grads), 1.0)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
         return loss, params, opt_state
@@ -73,3 +115,70 @@ def make_decode_step(cfg):
     def step(params, cache, tokens, cur_len):
         return _decode_step(cfg, params, cache, tokens, cur_len)
     return step
+
+
+# ------------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg, shape: ShapeSpec, with_labels: bool
+                 ) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.family == "encdec":
+        enc = dec = s // 2
+        out = {"frames": _meta((b, enc, cfg.d_model), torch.float32),
+               "dec_tokens": _meta((b, dec), i32)}
+        if with_labels:
+            out["labels"] = _meta((b, dec), i32)
+        return out
+    if cfg.frontend == "vision":
+        text = s - cfg.n_frontend_tokens
+        out = {"tokens": _meta((b, text), i32),
+               "vision_embeds": _meta((b, cfg.n_frontend_tokens, 1024),
+                                      torch.float32)}
+        if with_labels:
+            out["labels"] = _meta((b, text), i32)
+        return out
+    out = {"tokens": _meta((b, s), i32)}
+    if with_labels:
+        out["labels"] = _meta((b, s), i32)
+    return out
+
+
+def params_struct(cfg) -> Any:
+    return init_params(cfg, None, device="meta")
+
+
+def opt_struct(cfg, p_struct) -> Any:
+    return adamw_init(p_struct)
+
+
+def cache_struct(cfg, shape: ShapeSpec) -> Any:
+    return init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                             enc_len=ENC_LEN_FOR_DECODE, device="meta")
+
+
+def input_specs(cfg, shape_name: str) -> Dict[str, Any]:
+    """Meta-device stand-ins for every argument of one cell's step (no
+    allocation).
+
+    Returns {"kind", "args": tuple} matching the cell's step fn:
+      train:   (params, opt_state, batch)
+      prefill: (params, batch)
+      decode:  (params, cache, tokens, cur_len)
+    """
+    shape = SHAPES_BY_NAME[shape_name]
+    p = params_struct(cfg)
+    if shape.kind == "train":
+        return {"kind": "train",
+                "args": (p, opt_struct(cfg, p),
+                         batch_struct(cfg, shape, with_labels=True))}
+    if shape.kind == "prefill":
+        return {"kind": "prefill",
+                "args": (p, batch_struct(cfg, shape, with_labels=False))}
+    tokens = _meta((shape.global_batch,), torch.int32)
+    cur = _meta((), torch.int32)
+    return {"kind": "decode",
+            "args": (p, cache_struct(cfg, shape), tokens, cur)}

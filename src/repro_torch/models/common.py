@@ -5,8 +5,10 @@ Every dtype cast the JAX code makes is made in the same place: the norms,
 ``apply_rope`` and ``softcap`` compute in float32 and cast back to the
 input's dtype. Initialisers draw from an explicit ``torch.Generator`` on
 its device (``jax.random`` keys have no counterpart; the distributions are
-the same, the numbers are not). ``with_sharding`` and ``shard_seq`` wait
-for the distributed slice.
+the same, the numbers are not); on the meta device, which has no
+generator, they make the shape and draw nothing. ``with_sharding`` and
+``shard_seq`` (sharding constraints inside JAX's jitted model) have no
+counterpart on one device.
 """
 
 from __future__ import annotations
@@ -129,6 +131,8 @@ def dense_init(generator: torch.Generator, shape, dtype,
     """Truncated-normal fan-in init (LeCun-style): a standard normal cut at
     +-2, times 1/sqrt(fan_in), drawn in float32 on the generator's device
     and cast to ``dtype``."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     std = 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -139,6 +143,8 @@ def dense_init(generator: torch.Generator, shape, dtype,
 def normal_init(generator: torch.Generator, shape, dtype,
                 std: float) -> torch.Tensor:
     """A normal draw in float32 times ``std``, cast to ``dtype``."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * std).to(dtype)

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels.rwkv6.ref import inclusive_scan
 from .common import silu
 
 
@@ -45,12 +46,14 @@ def ssd_chunked(x, dt, a_log, B, C, D, state, chunk: int = 64):
     Bf, Cf = B.float(), C.float()
     tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
                                 device=x.device))           # incl. diag
+    # the inclusive in-chunk prefix sums of every chunk at once, (b,n,c,h)
+    L_all = inclusive_scan(dla.reshape(b, s // c, c, h), dim=2)
     S = state.float()
     ys = []
     for i in range(0, s, c):
-        xc, dtc, dlc = xf[:, i:i + c], dtf[:, i:i + c], dla[:, i:i + c]
+        xc, dtc = xf[:, i:i + c], dtf[:, i:i + c]
         Bc, Cc = Bf[:, i:i + c], Cf[:, i:i + c]
-        L = torch.cumsum(dlc, dim=1)                        # (b,c,h) incl.
+        L = L_all[:, i // c]                                # (b,c,h) incl.
         # inter-chunk: the state decayed by every decay up to and with t
         y = torch.einsum("bcn,bhpn,bch->bchp", Cc, S, torch.exp(L))
         # intra-chunk: pairwise decay e^{L_t - L_s} for s <= t. The mask is

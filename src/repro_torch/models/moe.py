@@ -24,8 +24,8 @@ outputs instead and adds them in the order of their expert ids, a fixed
 order, and the one XLA's scatter takes.
 
 ``cfg.moe_shard_hints`` only places tensors on a device mesh in JAX
-(``_ep_hint``). On one device it has no counterpart (ROADMAP Queue 1
-item 9): the field is accepted and ignored.
+(``_ep_hint``). On one device it has no counterpart: the field is
+accepted and ignored.
 """
 
 from __future__ import annotations

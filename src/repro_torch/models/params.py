@@ -237,11 +237,25 @@ def _stack_layers(n: Union[int, Tuple[int, ...]], make: Callable[[], Any]):
 
 
 # -------------------------------------------------------------- full models
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+class _NoDraws:
+    """What the initialisers take for a generator on the meta device, which
+    has none: they make each leaf's shape there and draw nothing."""
+    device = torch.device("meta")
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device=None) -> Dict[str, Any]:
     """The parameter tree of ``cfg``, drawn from ``generator`` on its
-    device; ``device``, when given, must be that device's kind."""
-    if device is not None and torch.device(device).type \
+    device; ``device``, when given, must be that device's kind. With no
+    generator, ``device`` must be ``"meta"``: the tree's shapes and dtypes
+    (the counterpart of ``jax.eval_shape`` of JAX's ``init_params``), with
+    no memory allocated, at any config's full size."""
+    if generator is None:
+        if device is None or torch.device(device).type != "meta":
+            raise ValueError(f"init_params draws from a generator; only the "
+                             f"meta device takes none (device={device!r})")
+        generator = _NoDraws()
+    elif device is not None and torch.device(device).type \
             != generator.device.type:
         raise ValueError(f"device={device!r} but the generator is on "
                          f"{generator.device}")

@@ -3,10 +3,12 @@ the checkpoint, gradient compression and the train step walk).
 
 A tree is nested dicts, lists, tuples and ``NamedTuple``s; every other
 object is a leaf, except ``None``, which is no leaf (it stays in the
-structure, as in JAX). Dict keys are visited sorted, sequences in order,
-so ``tree_leaves`` lists a tree's leaves as ``jax.tree_util.tree_leaves``
-lists those of the same tree in JAX: a checkpoint of either package
-restores into the other's template.
+structure, as in JAX). Another subclass of ``tuple`` is a leaf, as JAX
+takes one: a sharding spec ``distributed.shardings.P`` is a tuple, and a
+spec tree's leaves are its specs. Dict keys are visited sorted,
+sequences in order, so ``tree_leaves`` lists a tree's leaves as
+``jax.tree_util.tree_leaves`` lists those of the same tree in JAX: a
+checkpoint of either package restores into the other's template.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def _children(tree):
     """The subtrees of a node in JAX's order, or None for a leaf."""
     if isinstance(tree, dict):
         return [tree[k] for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in (list, tuple) or _is_namedtuple(tree):
         return list(tree)
     return None
 

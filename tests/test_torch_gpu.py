@@ -1152,3 +1152,127 @@ def test_qwen2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
     for p, w in zip(tree_leaves(card), tree_leaves(host)):
         torch.testing.assert_close(p.detach().cpu(), w.detach(), rtol=0,
                                    atol=2 * lr + 1e-5)
+
+
+# ------------------------------------------------- determinism and elastic
+def _nondeterministic_warnings(fn):
+    """Run ``fn`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``; its result and the warnings of ops without a
+    deterministic implementation (cuBLAS's own, which only
+    ``CUBLAS_WORKSPACE_CONFIG`` answers, left out)."""
+    import warnings
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    return out, [str(w.message) for w in caught
+                 if "determinis" in str(w.message)
+                 and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
+
+
+def test_plain_scans_are_deterministic_on_the_card(fp32_cuda):
+    """The WKV scan's plain version (the backward's recompute) and the
+    Mamba-2 SSD scan take their in-chunk prefix sums with
+    ``inclusive_scan`` (shifted float32 adds) on either device: no op warns
+    in deterministic mode, two runs agree bit for bit, and each equals the
+    CPU's within float32 rounding. The prefix sums themselves equal the
+    CPU's bit for bit, with the TF32 switch on as well as off."""
+    from repro_torch.kernels.rwkv6.ref import inclusive_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    gen = torch.Generator("cpu").manual_seed(3)
+    b, h, s, d = 2, 4, 64, 64
+    r, k, v = (torch.randn((b, h, s, d), generator=gen) * 0.4
+               for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn((b, h, s, d), generator=gen)
+                                  * 0.3 - 0.6), -4.25, -1e-6)
+    u = torch.randn((h, d), generator=gen) * 0.3
+    state = torch.randn((b, h, d, d), generator=gen) * 0.5
+    wkv_in = (r, k, v, logw, u, state)
+    p, n = 16, 32
+    x = torch.randn((b, 128, h, p), generator=gen)
+    dt = torch.rand((b, 128, h), generator=gen) * 0.5
+    a_log = torch.randn((h,), generator=gen) * 0.5
+    B, C = (torch.randn((b, 128, n), generator=gen) for _ in range(2))
+    D = torch.randn((h,), generator=gen)
+    ssd_in = (x, dt, a_log, B, C, D, torch.zeros((b, h, p, n)))
+    for fn, ins in ((wkv_chunked_ref, wkv_in), (ssd_chunked, ssd_in)):
+        card = [t.to(fp32_cuda) for t in ins]
+        first, warned = _nondeterministic_warnings(lambda: fn(*card))
+        assert warned == [], (fn.__name__, warned)
+        again, _ = _nondeterministic_warnings(lambda: fn(*card))
+        want = fn(*ins)
+        for a, b_, w in zip(first, again, want):
+            assert torch.equal(a, b_), fn.__name__
+            torch.testing.assert_close(a.cpu(), w, rtol=1e-5, atol=1e-5)
+    lw = logw.reshape(b, h, s // 16, 16, d)
+    want = inclusive_scan(lw, dim=3)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got = inclusive_scan(lw.to(fp32_cuda), dim=3)
+            assert torch.equal(got.cpu(), want), tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_elastic_trainer_on_the_card(cuda):
+    """``ElasticTrainer`` on one card at qwen2's smoke size in bf16, as
+    ``chip_smoke.py``'s elastic phase runs it at full size: it computes on
+    the card by default; the ladder trainer's ``scale_to(1)`` is a generic
+    hit with no build, the other's is cold with one; both take the same
+    three steps from the same state with equal losses, bit for bit, each
+    step launching the flash route twice a layer (remat reruns it)."""
+    import torch.distributed as dist
+    from repro_torch.data import SyntheticLM
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = get_smoke_config("qwen2_0_5b")
+    batches = [next(SyntheticLM(cfg.vocab, 64, 4, seed=s)) for s in range(3)]
+
+    def make_step(mesh):
+        inner = make_train_step(cfg, mesh=mesh)
+
+        def step(state, b):
+            loss, params, opt = inner(*state, b)
+            return loss, (params, opt)
+        return step
+
+    def init_state():
+        p = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+        return (p, adamw_init(p))
+
+    route = flash_route(cfg.param_dtype, cfg.d_head)
+    runs = []
+    assert not dist.is_initialized()
+    try:
+        for ladder in ((1,), ()):
+            tr = ElasticTrainer(cfg, make_step, init_state, ladder=ladder,
+                                example_batch=batches[0])
+            assert tr.device.type == "cuda"
+            tr.prewarm()
+            built = tr.n_builds
+            ev = tr.scale_to(1)
+            losses = []
+            for b in batches:
+                _build.launches.clear()
+                losses.append(tr.train_step(b))
+                torch.cuda.synchronize()
+                assert dict(_build.launches) == {route: 2 * cfg.n_layers}
+            runs.append((built, ev["kind"], tr.n_builds - built, losses))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (hb, hk, hs, hl), (cb, ck, csb, cl) = runs
+    assert (hb, hk, hs) == (1, "generic", 0)
+    assert (cb, ck, csb) == (0, "cold", 1)
+    assert all(torch.isfinite(x) for x in hl)
+    assert all(torch.equal(a, b) for a, b in zip(hl, cl))

@@ -43,6 +43,14 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.optim, repro_torch.data, repro_torch.tree\n"
             "import repro_torch.checkpoint, repro_torch.distributed\n"
             "import repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.shardings\n"
+            "import repro_torch.launch.mesh\n"
+            "from repro_torch.elastic import ElasticTrainer\n"
+            "from repro_torch.launch.steps import input_specs\n"
+            "import warnings\n"
+            "with warnings.catch_warnings():\n"
+            "    warnings.simplefilter('ignore', DeprecationWarning)\n"
+            "    import repro_torch.core.legacy\n"
             "from repro_torch.configs import all_archs, get_config\n"
             "[get_config(a) for a in all_archs()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

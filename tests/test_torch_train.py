@@ -48,9 +48,20 @@ def _bridged(arch, **over):
 
 
 def _batch(cfg, b, s, seed=3):
-    toks = np.random.RandomState(seed).randint(0, cfg.vocab, (b, s)) \
-        .astype(np.int32)
-    return {"tokens": toks, "labels": toks}
+    """A seeded batch of the config's family: tokens and labels (after the
+    vision stub's random embeddings for llava), or the encoder-decoder's
+    32 float32 frames and ``s`` decoder tokens."""
+    rng = np.random.RandomState(seed)
+    if cfg.family == "encdec":
+        frames = rng.randn(b, 32, cfg.d_model).astype(np.float32)
+        toks = rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+        return {"frames": frames, "dec_tokens": toks, "labels": toks}
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    toks = rng.randint(0, cfg.vocab, (b, s - n_img)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if n_img:
+        batch["vision_embeds"] = rng.randn(b, n_img, 1024).astype(np.float32)
+    return batch
 
 
 def _assert_leafwise(got, want, what):
@@ -65,8 +76,9 @@ def _assert_leafwise(got, want, what):
             f"{what} leaf {i}: max|diff| {err} > {TOL} x {np.abs(w).max()}"
 
 
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "rwkv6_7b", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", tconfigs.all_archs())
 def test_train_loss_and_gradients_match_jax(arch):
+    """Every config, float32 (``_bridged``)."""
     jcfg, tcfg, jp, tp = _bridged(arch)
     batch = _batch(jcfg, 2, 32)
     jloss, jgrads = jax.value_and_grad(lambda p: jm.train_loss(

@@ -61,11 +61,12 @@ def _chip_smoke():
 @pytest.mark.parametrize("arch,size", [
     ("qwen2_0_5b", dict(batch=4, seq=64, steps=8, resume_at=4,
                         descent=True)),
-    ("rwkv6_7b", dict(batch=4, seq=32, steps=4, grad_accum=2))])
+    ("rwkv6_7b", dict(batch=4, seq=32, steps=4, resume_at=2,
+                      grad_accum=2))])
 def test_chip_smoke_train_phase_rehearsed_on_cpu(arch, size, tmp_path):
     """``chip_smoke.py``'s train phase at smoke size on the CPU (no kernel
-    launches there: the plain versions run), with its checkpoint, restore
-    and resume, and rwkv6's two microbatches."""
+    launches there: the plain versions run), with each model's checkpoint,
+    restore and resume, and rwkv6's two microbatches."""
     cs = _chip_smoke()
     accum = size.pop("grad_accum", None)
 
@@ -80,9 +81,10 @@ def test_chip_smoke_train_phase_rehearsed_on_cpu(arch, size, tmp_path):
     assert r["reduced"] == [f"global batch 256 -> {size['batch']}"]
     assert r["grad_accum"] == (accum or 1)
     if "resume_at" in size:
+        at = size["resume_at"]
         assert r["resume"]["bit_for_bit"] and r["resume"]["equal"]
-        assert r["resume"]["resumed_losses"] == r["losses"][4:]
-        assert os.path.isdir(tmp_path / "step_00000004")
+        assert r["resume"]["resumed_losses"] == r["losses"][at:]
+        assert os.path.isdir(tmp_path / f"step_{at:08d}")
 
 
 def test_train_launches_follow_remat_and_accumulation():

@@ -19,8 +19,8 @@ from repro.kernels.rwkv6.ops import wkv as jax_wkv
 from repro.kernels.rwkv6.ref import wkv_sequential as jax_sequential
 from repro.models.rwkv6 import wkv_chunked as jax_chunked
 from repro_torch.kernels.rwkv6.ops import wkv, wkv_with_state
-from repro_torch.kernels.rwkv6.ref import (wkv_chunked_ref, wkv_ref,
-                                          wkv_sequential)
+from repro_torch.kernels.rwkv6.ref import (inclusive_scan, wkv_chunked_ref,
+                                          wkv_ref, wkv_sequential)
 from repro_torch.kernels.rwkv6.rwkv6 import ROUTES, wkv_route
 from repro_torch.models.rwkv6 import wkv_chunked
 
@@ -181,3 +181,18 @@ def test_route_dispatch(dk, dv, chunk, route):
     other shape the one-CTA-a-head kernel."""
     assert wkv_route(dk, dv, chunk) == route
     assert route in ROUTES
+
+
+@pytest.mark.parametrize("shape,dim", [((5,), 0), ((3, 1, 4), 1),
+                                       ((2, 13, 3), 1), ((2, 4, 16, 8), 2),
+                                       ((2, 3, 64), 2)])
+def test_inclusive_scan_is_the_prefix_sum(shape, dim):
+    """The plain scans' prefix sums (shifted adds, any length, any axis)
+    equal JAX's ``jnp.cumsum`` within float32 rounding, in the input's
+    shape and dtype."""
+    x = np.random.RandomState(len(shape) + dim).randn(*shape) \
+        .astype(np.float32)
+    got = inclusive_scan(torch.from_numpy(x), dim)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnp.cumsum(x, dim)),
+                               atol=1e-5, rtol=1e-5)
