@@ -6,7 +6,9 @@ decode) for qwen2-0.5b, rwkv6-7b, olmoe-1b-7b, deepseek-v2-236b (4 of its
 size, rwkv6-7b at full width and 4 of its 32 layers, each with a checkpoint
 and a resume bit for bit, then qwen2-0.5b under ``ElasticTrainer``, a pool
 hit against a cold build), and the elastic KV service (dkv) with its device
-shard map; then the invocation gateway on the host.
+shard map; then the invocation gateway on the host, the GPipe pipeline over
+qwen2-0.5b's layers on the card, and the dry run of the production meshes
+(deepseek-v2-236b at full depth) on the host.
 
 Run from the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``):
@@ -167,11 +169,12 @@ plain version):
 11. Training path. First the kernels' autograd ``Function``s at the train
     shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
     train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
-    causal, and at the elastic phase's, q (4, 14, 1,024, 64) and k/v
-    (4, 2, 1,024, 64); ``flash_attention`` in float32 at (1, 14, 512, 64), causal and
-    with a window, a softcap, ``kv_len`` and ``q0 > 0``; ``wkv_split`` at
-    (2, 64, 1,024, 64) with bf16 r/k/v views and float32 logw from a
-    non-zero state, cotangents on ``o`` and the final state. The forward
+    causal, at the elastic phase's, q (4, 14, 1,024, 64) and k/v
+    (4, 2, 1,024, 64), and at the pipeline phase's, q (1, 14, 4,096, 64)
+    and k/v (1, 2, 4,096, 64); ``flash_attention`` in float32 at (1, 14,
+    512, 64), causal and with a window, a softcap, ``kv_len`` and
+    ``q0 > 0``; ``wkv_split`` at (2, 64, 1,024, 64) with bf16 r/k/v views
+    and float32 logw from a non-zero state, cotangents on ``o`` and the final state. The forward
     (the kernel, the route checked) against the plain version at 2e-2
     (bf16) / 2e-5 (float32), and the gradients of a seeded random cotangent
     against the plain version's own autograd gradients, bit for bit (the
@@ -255,10 +258,35 @@ plain version):
     worker-pull case of ``tests/test_dkv.py``; gates of its
     ``check_gates``: no invocation dropped, invocations in the spike
     window.
-14. A ``{"kernels": [...]}`` line with every C entry point (its launches
+14. Pipeline (``pipeline_phase``): ``pipeline_apply`` over a one-rank
+    NCCL "stage" mesh, the stage qwen2-0.5b's 24 decoder layers
+    (``dense_layer_full``) at full width in bf16, parameters drawn on the
+    card from seed 0, 4 microbatches of 1 x 4,096 tokens (embeddings of
+    drawn tokens), the loss the outputs' mean square, gradients of every
+    layer parameter. Gates: the forward equals the layers run microbatch
+    by microbatch bit for bit; two pipelined runs' gradients equal bit for
+    bit, and they lie within ``PIPELINE_GRAD_TOL`` (a leaf's largest error
+    over its largest value) of the whole batch's run in one call; each
+    pipelined run launches exactly 96 ``flash_attention_mma`` (24 layers x
+    4 microbatches; its shape, q (1, 14, 4,096, 64), is a case of phase
+    11's autograd routes), counted from 0 just before it and read just
+    after. Printed: after an untimed run of each, the runs' host times in
+    turns (pipeline, whole batch, whole batch, pipeline) and their peak
+    allocated memory.
+15. Dry run (``chip_smoke.py --dryrun``, a child process, since the fake
+    process groups of 256 and 512 ranks are default groups): qwen2-0.5b
+    and deepseek-v2-236b at full depth (60 layers; no card holds its ~470
+    GB) at ``train_4k`` on 16 x 16 (with the depth variants' exact FLOPs)
+    and 2 x 16 x 16, each traced on the meta device on the host
+    (``launch.dryrun.run_cell``). Printed: a rank's argument and output
+    bytes, FLOPs a rank, the collectives and the trace seconds. Gates:
+    every cell "ok", FLOPs and bytes above 0, and the train step's one
+    all-reduce over the data-parallel group, 16 ranks on 16 x 16 and 32
+    (pod x data) on 2 x 16 x 16.
+16. A ``{"kernels": [...]}`` line with every C entry point (its launches
     are those of every main-path run above: lookups, chain hops, prefills,
-    the float32 consistency prefills, the train and elastic steps and the
-    dkv mirror's lookups; each
+    the float32 consistency prefills, the train and elastic steps, the
+    dkv mirror's lookups and the pipelined runs; each
     entry point but ``wkv`` and the device route of ``chunk_gather`` must
     have launched there), then as the last line ``{"ok": true, "device":
     {...}}``.
@@ -287,6 +315,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -325,6 +354,9 @@ from repro_torch.kernels.rwkv6.rwkv6 import wkv_cuda, wkv_route  # noqa: E402
 from repro_torch.kvs.race import (  # noqa: E402
     NSLOT, SLOT_BYTES, DeviceRaceTable, RaceClient, ShardedDeviceRaceTable,
     query_hashes, query_shards)
+from repro_torch.distributed.pipeline import pipeline_apply  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import ensure_process_group  # noqa: E402
 from repro_torch.launch.serve import ServingWorker  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     make_decode_step, make_prefill_step, make_train_step)
@@ -333,7 +365,9 @@ from repro_torch.models import (  # noqa: E402
     init_params, prefill, train_loss, trainable)
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
-from repro_torch.models.model import unembed_chunk  # noqa: E402
+from repro_torch.models.blocks import dense_layer_full  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    _layers, embed, unembed_chunk)
 from repro_torch.serverless import (  # noqa: E402
     ChainRunner, ContainerPool, InvocationGateway, decode_slab,
     default_registry, diurnal_trace, encode_slab, expected_outputs,
@@ -449,6 +483,9 @@ TRAIN_SIZE = (dict(arch="qwen2_0_5b", batch=4, seq=4096, steps=8,
 #: the elastic trainer: qwen2-0.5b at full size as the train phase builds it
 #: (bf16, remat "block"), 4 x 1,024 tokens a step, 3 steps a trainer
 ELASTIC_SIZE = dict(arch="qwen2_0_5b", batch=4, seq=1024, steps=3, seed=0)
+#: the pipeline phase: qwen2-0.5b's decoder layers as the one stage of a
+#: one-rank "stage" mesh, ``n_micro`` microbatches of 1 x ``seq`` tokens
+PIPELINE_SIZE = dict(arch="qwen2_0_5b", n_micro=4, seq=4096, seed=0)
 #: where the train phase writes its checkpoint and its results (removed
 #: after the phase)
 TRAIN_CKPT_DIR = ROOT / "_train_ckpt"
@@ -2720,6 +2757,8 @@ GRAD_FLASH_CASES = (
     ("qwen2 train", 4, 14, 2, 4096, 64, "bfloat16", dict(causal=True)),
     ("qwen2 elastic", ELASTIC_SIZE["batch"], 14, 2, ELASTIC_SIZE["seq"], 64,
      "bfloat16", dict(causal=True)),
+    ("qwen2 pipeline", 1, 14, 2, PIPELINE_SIZE["seq"], 64, "bfloat16",
+     dict(causal=True)),
     ("causal", 1, 14, 2, 512, 64, "float32", dict(causal=True)),
     ("window", 1, 14, 2, 512, 64, "float32", dict(causal=True, window=128)),
     ("softcap", 1, 14, 2, 512, 64, "float32", dict(causal=True, cap=50.0)),
@@ -3611,6 +3650,235 @@ def _elastic_summary(r: dict) -> dict:
                 compile_s=r["hit"]["compile_s"])
 
 
+# ------------------------------------------------ 14. pipeline, 15. dry run
+#: the pipeline's gradients against the whole-batch sequential run's, each
+#: leaf's largest error over its largest value: bf16 (8 bits of mantissa)
+#: rounded in another order (four microbatch products summed in float32
+#: against one product over the batch), through 24 layers
+PIPELINE_GRAD_TOL = 5e-2
+#: the dry run's cells (arch, shape, two pods, the depth variants' exact
+#: FLOPs): deepseek-v2 at full depth, which no card holds (~470 GB), and
+#: qwen2-0.5b, on both production meshes
+DRYRUN_CELLS = (dict(arch="qwen2_0_5b", shape="train_4k", multi_pod=False),
+                dict(arch="qwen2_0_5b", shape="train_4k", multi_pod=True),
+                dict(arch="deepseek_v2_236b", shape="train_4k",
+                     multi_pod=False),
+                dict(arch="deepseek_v2_236b", shape="train_4k",
+                     multi_pod=True))
+
+
+def pipeline_phase(device, *, arch, n_micro, seq, seed,
+                   config=get_config) -> dict:
+    """``pipeline_apply`` over a one-rank "stage" mesh (NCCL on the card,
+    gloo on the CPU; a process group of this process alone, destroyed
+    after the phase): the stage function is ``arch``'s decoder layers at
+    full width in the config's dtype (``dense_layer_full`` a layer), the
+    input the embeddings of ``n_micro`` microbatches of 1 x ``seq`` drawn
+    tokens, parameters drawn on ``device`` from ``seed``; the loss the mean
+    square of the outputs, taken with ``torch.autograd.grad`` over every
+    layer parameter. Gates: the forward equals the same layers run
+    microbatch by microbatch bit for bit (same shapes, same kernels); the
+    gradients equal those of the whole batch run in one call at
+    ``PIPELINE_GRAD_TOL``; each pipelined run launches exactly one flash
+    kernel a layer and microbatch (the backward recomputes through the
+    plain version), counted from 0 just before it and read just after.
+    After an untimed run of each, runs in turns (pipeline, whole batch,
+    whole batch, pipeline), each timed on the host clock ending in a
+    synchronize, with its peak allocated memory."""
+    cfg = config(arch)
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else "no card (CPU rehearsal)"
+    route = flash_route(cfg.param_dtype, cfg.d_head)
+    want = {route: attn_calls(cfg) * n_micro} if on_card else {}
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    tokens = torch.randint(0, cfg.vocab, (n_micro, 1, seq), generator=gen,
+                           device=device)
+    x = embed(cfg, params, tokens).detach()           # (M, 1, seq, d)
+    blocks = params["blocks"]
+    del params
+    leaves = tree_leaves(blocks)
+    for t in leaves:
+        t.requires_grad_()
+
+    def stage_fn(p, h):
+        positions = torch.arange(h.shape[1], device=h.device).expand(
+            h.shape[0], -1)
+        for p_l in _layers(p):
+            h = dense_layer_full(cfg, p_l, h, positions,
+                                 cfg.sliding_window)[0]
+        return h
+
+    def loss_of(out):
+        return (out.float() ** 2).mean()
+
+    def pipelined(mesh):
+        out = pipeline_apply(stage_fn, blocks, x, mesh)
+        return out.detach(), torch.autograd.grad(loss_of(out), leaves)
+
+    def whole(mesh):
+        out = stage_fn(blocks, x.reshape(n_micro, seq, -1))
+        return out.detach().reshape(x.shape), \
+            torch.autograd.grad(loss_of(out), leaves)
+
+    check(not dist.is_initialized(), "pipeline: a process group exists")
+    ensure_process_group(device)
+    runs = {}
+    try:
+        mesh = DeviceMesh(device.type, torch.arange(1),
+                          mesh_dim_names=("stage",))
+        # an untimed run of each first (the first calls of a process pay
+        # for handles, allocations and the plain recompute's first shapes)
+        for name in ("warm-up", "warm-up whole", "pipeline", "whole",
+                     "whole", "pipeline"):
+            fn = pipelined if name in ("warm-up", "pipeline") else whole
+            _sync(device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            out, grads = fn(mesh)
+            _sync(device)
+            # gradients kept for the checks: both timed pipelined runs' and
+            # the first whole batch's
+            keep = name == "pipeline" or (name == "whole"
+                                          and "whole" not in runs)
+            runs.setdefault(name, []).append(dict(
+                out=out, grads=grads if keep else None,
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                launches=dict(_build.launches),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(device)
+                if on_card else None))
+        with torch.no_grad():
+            by_micro = torch.stack([stage_fn(blocks, x[i])
+                                    for i in range(n_micro)])
+    finally:
+        dist.destroy_process_group()
+    pipe, ref = runs["pipeline"], runs["whole"]
+    for r in runs["warm-up"] + pipe:
+        check(r["launches"] == want, f"pipeline {arch}: a pipelined run "
+              f"launched {r['launches']}, expected {want}")
+        check(_bits_equal(r["out"], by_micro),
+              f"pipeline {arch}: the forward differs from the layers run "
+              f"microbatch by microbatch")
+    check(all(_bits_equal(a, b) for a, b in zip(pipe[0]["grads"],
+                                                  pipe[1]["grads"])),
+          f"pipeline {arch}: two pipelined runs' gradients differ")
+    grad_err = 0.0
+    for g, w in zip(pipe[0]["grads"], ref[0]["grads"]):
+        check(bool(torch.isfinite(g).all()), f"pipeline {arch}: a gradient "
+              f"is not finite")
+        scale = float(w.float().abs().max())
+        grad_err = max(grad_err, float((g.float() - w.float()).abs().max())
+                       / (scale if scale > 0 else 1.0))
+    check(grad_err <= PIPELINE_GRAD_TOL,
+          f"pipeline {arch}: gradients {grad_err:.3e} (a leaf's largest "
+          f"error over its largest value) from the whole batch's, above "
+          f"{PIPELINE_GRAD_TOL}")
+    out_err = float((pipe[0]["out"].float() - ref[0]["out"].float()).abs()
+                    .max())
+    launches = collections.Counter()
+    for r in runs["warm-up"] + pipe:
+        launches.update(r["launches"])
+    res = dict(arch=arch, n_layers=cfg.n_layers, n_micro=n_micro, seq=seq,
+               dtype=cfg.dtype, launches=dict(launches),
+               launches_a_run=pipe[0]["launches"], grad_err=grad_err,
+               grad_tol=PIPELINE_GRAD_TOL, whole_batch_out_max_abs=out_err,
+               pipeline_wall_ms=[r["wall_ms"] for r in pipe],
+               whole_wall_ms=[r["wall_ms"] for r in ref],
+               pipeline_peak_memory_bytes=[r["peak_memory_bytes"]
+                                           for r in pipe],
+               whole_peak_memory_bytes=[r["peak_memory_bytes"] for r in ref],
+               card=card)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"pipeline {arch} ({cfg.n_layers} layers as one stage, {cfg.dtype},"
+          f" {n_micro} microbatches of 1 x {seq} tokens, a one-rank "
+          f"{'NCCL' if on_card else 'gloo'} stage mesh; on {card}): forward "
+          f"equal bit for bit to the layers run microbatch by microbatch; "
+          f"gradients within {grad_err:.3e} of the whole batch's (leaf's "
+          f"largest error over its largest value; tolerance "
+          f"{PIPELINE_GRAD_TOL}), outputs within {out_err:.3e}; each "
+          f"pipelined run launched {pipe[0]['launches']}")
+    print(f"time pipeline {arch} on {card}: forward + backward "
+          f"{[round(r['wall_ms'], 3) for r in pipe]} ms pipelined against "
+          f"{[round(r['wall_ms'], 3) for r in ref]} ms for the whole batch "
+          f"in one call (turns: pipeline, whole, whole, pipeline); peak "
+          f"allocated {res['pipeline_peak_memory_bytes']} B pipelined, "
+          f"{res['whole_peak_memory_bytes']} B whole; the phase "
+          f"{res['wall_s']:.3f} s")
+    return res
+
+
+def dryrun_rows(cells=DRYRUN_CELLS, overrides=None) -> list:
+    """The dry run's record of each cell (``launch.dryrun.run_cell``; the
+    exact FLOPs on the single-pod mesh). Each cell starts the fake process
+    group of its mesh and destroys it after."""
+    return [dryrun.run_cell(c["arch"], c["shape"], c["multi_pod"], overrides,
+                            exact=not c["multi_pod"]) for c in cells]
+
+
+def dryrun_report(rows, card: str) -> list:
+    """Print each record and gate it: status "ok", FLOPs > 0, argument
+    bytes > 0, and a train step's collectives one all-reduce over the
+    data-parallel group (16 ranks on 16 x 16, pod x data = 32 on
+    2 x 16 x 16)."""
+    for r in rows:
+        check(r["status"] == "ok", f"dry run {r['arch']} {r['shape']} "
+              f"{r['mesh']}: {r.get('error')}\n{r.get('trace', '')}")
+        col, mem = r["collectives"], r["memory"]
+        print(f"dryrun {r['arch']} {r['shape']} {r['mesh']} ({r['ranks']} "
+              f"ranks on the fake group, traced on the meta device on the "
+              f"host of {card}): argument bytes a rank "
+              f"{mem['argument_bytes']}, output bytes {mem['output_bytes']} "
+              f"(temp bytes not known), FLOPs a rank "
+              f"{r['flops_per_device']:.6e} ({r['flops_source']})"
+              + (f", exact {r['exact']['flops_per_device']:.6e} from depths "
+                 f"{r['exact']['depth_points']}" if "exact" in r else "")
+              + f"; collectives {col['counts']} over groups of "
+              f"{col['group_sizes']}, result bytes {col['result_bytes']}, "
+              f"link bytes a rank {col['link_bytes_per_device']:.6e}; "
+              f"trace {r['trace_s']} s"
+              + (f" (+ {r['exact']['trace_s']:.3f} s for the depth variants)"
+                 if "exact" in r else ""))
+        check(r["flops_per_device"] > 0 and mem["argument_bytes"] > 0,
+              f"dry run {r['arch']} {r['mesh']}: no FLOPs or no bytes")
+        if r["kind"] == "train":
+            k = 32 if r["mesh"] == "2x16x16" else 16
+            check(col["counts"]["all-reduce"] == 1
+                  and col["group_sizes"] == [k],
+                  f"dry run {r['arch']} {r['mesh']}: the train step's "
+                  f"collectives {col}, expected one all-reduce over {k} ranks")
+    return rows
+
+
+def dryrun_phase_child() -> int:
+    """Phase 15 itself, run as ``chip_smoke.py --dryrun`` by
+    :func:`dryrun_phase` (the fake process groups of 256 and 512 ranks are
+    default groups of their own process): prints its records as one JSON
+    line after ``DRYRUN``."""
+    t0 = time.perf_counter()
+    rows = dryrun_rows()
+    print(f"dry run wall time {time.perf_counter() - t0:.3f} s", flush=True)
+    print("DRYRUN " + json.dumps(rows), flush=True)
+    return 0
+
+
+def dryrun_phase() -> list:
+    """Run phase 15 in a child process and gate its records."""
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun"],
+        stdout=subprocess.PIPE, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    print("\n".join(line for line in lines if not line.startswith("DRYRUN ")))
+    check(proc.returncode == 0, f"the dry run exited {proc.returncode}")
+    rows = json.loads(next(line for line in lines
+                           if line.startswith("DRYRUN "))[len("DRYRUN "):])
+    return dryrun_report(rows, card_line())
+
+
 # ------------------------------------------------------------------- main
 #: launches each main-path run must make, exactly (see the module docstring)
 LOOKUP_LAUNCHES = {
@@ -3641,6 +3909,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if argv == ["--train"]:
         return train_phase_child(device)
+    if argv == ["--dryrun"]:
+        return dryrun_phase_child()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3684,6 +3954,8 @@ def main(argv) -> int:
     check(dkv["launches"] == DKV_LAUNCHES,
           f"dkv launches {dkv['launches']}, expected {DKV_LAUNCHES}")
     gateway_phase(**GATEWAY_SIZE)
+    pipeline = pipeline_phase(device, **PIPELINE_SIZE)
+    dryrun_phase()
     torch.cuda.synchronize(device)
     # the tiled and scalar routes against the sharded ones, the in-run
     # control, at each batch (the same bytes a lookup); the scalar kernel's
@@ -3733,6 +4005,7 @@ def main(argv) -> int:
     for row in training.values():
         launches.update(row["launches"])
     launches.update(elastic["launches"])
+    launches.update(pipeline["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
     by_arch = {row["arch"]: row for row in consistent}
     kernels = []
@@ -3740,7 +4013,9 @@ def main(argv) -> int:
                       serve=qwen2, train=_train_summary(
                           training["qwen2_0_5b"], recompute["qwen2_0_5b"]),
                       grad=grads["flash_attention_mma"],
-                      elastic=_elastic_summary(elastic)),
+                      elastic=_elastic_summary(elastic),
+                      pipeline={k: v for k, v in pipeline.items()
+                                if k != "card"}),
                   "flash_attention": dict(consistency=by_arch["qwen2_0_5b"],
                                           grad=grads["flash_attention"]),
                   "wkv_split": dict(serve=rwkv6,

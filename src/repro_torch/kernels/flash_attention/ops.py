@@ -95,7 +95,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
     if bq < 1 or bk < 1:
         raise ValueError(f"block sizes must be positive: bq={bq} bk={bk}")
     q, k, v = on_device(device, (q, k, v), (None,) * 3, contiguous=False)
-    if impl == "ref" or q.device.type == "cpu":
+    # a meta tensor (the dry run's trace) computes nothing: the plain
+    # version gives its shape, FLOPs and collectives; a CUDA tensor still
+    # reaches the kernel or raises
+    if impl == "ref" or q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    cap=cap, kv_len=kv_len, q0=q0)
     kw = dict(causal=causal, window=window, cap=cap, kv_len=kv_len, q0=q0)

@@ -83,7 +83,10 @@ def wkv_with_state(r, k, v, logw, u, state=None, *, chunk: int = 16,
                        contiguous=False)
     r, k, v, logw, u = arrays[:5]
     state = arrays[5] if len(arrays) > 5 else None
-    if impl == "ref" or r.device.type == "cpu":
+    # a meta tensor (the dry run's trace) computes nothing: the plain
+    # version gives its shape and FLOPs; a CUDA tensor still reaches the
+    # kernel or raises
+    if impl == "ref" or r.device.type in ("cpu", "meta"):
         if state is None:
             state = torch.zeros((*r.shape[:2], r.shape[-1], v.shape[-1]),
                                 dtype=torch.float32, device=r.device)

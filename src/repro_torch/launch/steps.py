@@ -16,6 +16,7 @@ from ..models import init_decode_cache, init_params, prefill, train_loss, \
 from ..models.config import SHAPES_BY_NAME, ShapeSpec
 from ..models.model import decode_step as _decode_step
 from ..optim import adamw_init, adamw_update, clip_by_global_norm
+from ..distributed.shardings import dp_axes
 from ..tree import tree_leaves, tree_unflatten
 from .mesh import current_mesh
 
@@ -38,6 +39,21 @@ def _data_mean(loss, grads, group):
     return flat[0].clone(), out
 
 
+def dp_group(mesh):
+    """The process group of the ranks that share this rank's coordinates on
+    every mesh dimension outside ``dp_axes(mesh)``: the batch's shards, over
+    which a step averages. On ("data", "model") the "data" group; on
+    ("pod", "data", "model") the pod x data group (32 ranks on the
+    production mesh), made once by flattening the two dimensions. None on
+    a mesh with no data-parallel dimension (the batch is not split)."""
+    dp = dp_axes(mesh)
+    if not dp:
+        return None
+    if len(dp) == 1:
+        return mesh.get_group(dp[0])
+    return mesh[dp]._flatten().get_group()
+
+
 def make_train_step(cfg, lr: float = 3e-4, mesh=None):
     """(params, opt_state, batch) -> (loss, params, opt_state).
 
@@ -49,20 +65,21 @@ def make_train_step(cfg, lr: float = 3e-4, mesh=None):
     operations. Data parallel: with a ``mesh`` (by default the one of an
     enclosing ``launch.mesh.set_mesh`` block, if any), ``batch`` is this
     rank's block of the global batch, and the loss and the gradients are
-    averaged over the mesh's "data" group, as JAX's step on a batch sharded
-    over "data" under its ambient mesh computes them (a group of one rank
-    has nothing to average; on a rank outside the mesh the step raises
-    ``RuntimeError``). Then ``clip_by_global_norm(grads, 1.0)`` and
-    ``adamw_update``, which updates ``params`` and ``opt_state`` in place
-    (see ``optim/adamw.py``). The loss comes back as a 0-d float32
+    averaged over the mesh's data-parallel group (:func:`dp_group`), as
+    JAX's step on a batch sharded over ``dp_axes(mesh)`` under its ambient
+    mesh computes them (a group of one rank has nothing to average; on a
+    rank outside the mesh the step raises ``RuntimeError``). Then
+    ``clip_by_global_norm(grads, 1.0)`` and ``adamw_update``, which
+    updates ``params`` and ``opt_state`` in place (see
+    ``optim/adamw.py``). The loss comes back as a 0-d float32
     tensor."""
     accum = max(cfg.grad_accum, 1)
     mesh = current_mesh() if mesh is None else mesh
     outside = mesh is not None and mesh.get_coordinate() is None
     group = None
     if mesh is not None and not outside:
-        group = mesh.get_group("data")
-        if dist.get_world_size(group) == 1:
+        group = dp_group(mesh)
+        if group is not None and dist.get_world_size(group) == 1:
             group = None
 
     def grads_of(params, leaves, batch):

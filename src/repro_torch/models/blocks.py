@@ -25,7 +25,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .attention import attention, decode_attention
-from .common import act_fn, apply_norm, apply_rope
+from .common import (act_fn, apply_norm, apply_rope, decode_positions,
+                     write_at)
 from .mamba2 import mamba2_mixer
 from .mla import mla_attention_train, mla_decode_step
 from .moe import moe_ffn
@@ -75,10 +76,10 @@ def self_attention_decode(cfg, p, x, kcache, vcache, cur_len: int, window):
     (JAX's ``dynamic_update_slice`` returns a new buffer); the caches are
     returned all the same."""
     b = x.shape[0]
-    positions = torch.full((b, 1), cur_len, device=x.device)
+    positions = decode_positions(cur_len, b, x.device)
     q, k, v = qkv_project(cfg, p, x, positions)
-    kcache[:, :, cur_len:cur_len + 1] = k.to(kcache.dtype)
-    vcache[:, :, cur_len:cur_len + 1] = v.to(vcache.dtype)
+    write_at(kcache, 2, cur_len, k)
+    write_at(vcache, 2, cur_len, v)
     o = decode_attention(q, kcache, vcache, cur_len + 1, window=window,
                          cap=cfg.attn_softcap)
     return attn_out(cfg, p, o), kcache, vcache

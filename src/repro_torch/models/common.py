@@ -58,6 +58,27 @@ def apply_norm(cfg, x: torch.Tensor, w) -> torch.Tensor:
     return layer_norm(x, w, None)
 
 
+# ---------------------------------------------------------- decode position
+def decode_positions(pos, b: int, device) -> torch.Tensor:
+    """(b, 1) int64 positions all ``pos``: an int, or a 0-d integer tensor
+    read on the device (no host read, so a meta trace of a decode step
+    runs)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device, torch.int64).reshape(1, 1).expand(b, 1)
+    return torch.full((b, 1), pos, device=device)
+
+
+def write_at(cache: torch.Tensor, dim: int, pos, new: torch.Tensor) -> None:
+    """``cache``'s index ``pos`` along ``dim`` = ``new`` (its extent 1
+    there), in place; ``pos`` an int or a 0-d integer tensor, as in
+    :func:`decode_positions`."""
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(dim, pos.to(cache.device, torch.int64).reshape(1),
+                          new.to(cache.dtype))
+    else:
+        cache.narrow(dim, pos, 1).copy_(new)
+
+
 # ------------------------------------------------------------------- rope
 def rope_freqs(d: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import NEG_INF, attention
-from .common import apply_rope, rms_norm
+from .common import apply_rope, decode_positions, rms_norm, write_at
 
 
 def _query(cfg, p, x, positions):
@@ -92,7 +92,7 @@ def mla_decode_step(cfg, p, x, ckv_cache, krope_cache, cur_len: int):
     nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     pos = cur_len - 1
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = decode_positions(pos, b, x.device)
     q_nope, q_rope = _query(cfg, p, x, positions)           # (B,1,H,*)
 
     # new latent kv, inserted into the cache
@@ -100,8 +100,8 @@ def mla_decode_step(cfg, p, x, ckv_cache, krope_cache, cur_len: int):
     ckv_new = rms_norm(ckv_full[..., :r], p["kv_norm"])     # (B,1,r)
     krope_new = apply_rope(ckv_full[..., r:], positions,
                            cfg.rope_theta)                  # (B,1,rope)
-    ckv_cache[:, pos:pos + 1] = ckv_new.to(ckv_cache.dtype)
-    krope_cache[:, pos:pos + 1] = krope_new.to(krope_cache.dtype)
+    write_at(ckv_cache, 1, pos, ckv_new)
+    write_at(krope_cache, 1, pos, krope_new)
 
     # absorb W_kv_b (its K part) into the query: q_lat (B,H,r)
     wkb = p["kv_b"].reshape(r, h, nope + vdim)

@@ -534,8 +534,11 @@ def prefill(cfg, params, batch, max_len: int):
 
 def decode_step(cfg, params, cache, tokens, cur_len: int):
     """tokens: (B,) new token ids; cur_len: number of tokens already in the
-    cache. Returns (logits (B,V) f32, cache), the cache updated in place."""
-    cur_len = int(cur_len)
+    cache (an int, or a 0-d integer tensor, which is read on the device
+    only: a meta trace runs). Returns (logits (B,V) f32, cache), the cache
+    updated in place."""
+    if not isinstance(cur_len, torch.Tensor):
+        cur_len = int(cur_len)
     x = embed(cfg, params, tokens[:, None])
     if cfg.family == "encdec":
         x, cache = run_encdec_decode(cfg, params, x, cache, cur_len)

@@ -1276,3 +1276,76 @@ def test_elastic_trainer_on_the_card(cuda):
     assert (cb, ck, csb) == (0, "cold", 1)
     assert all(torch.isfinite(x) for x in hl)
     assert all(torch.equal(a, b) for a, b in zip(hl, cl))
+
+
+def test_meta_tensors_take_the_plain_version_cuda_tensors_the_kernel(cuda):
+    """The dry run traces on the meta device: there the model kernels'
+    wrappers give the plain version's result (shapes and dtypes, nothing
+    computed, no launch), while the same call on CUDA tensors still
+    launches the kernel its route names."""
+    q = torch.empty((1, 14, 256, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 2, 256, 64), dtype=torch.bfloat16, device="meta")
+    _build.launches.clear()
+    o = flash_ops.flash_attention(q, k, k, causal=True)
+    assert o.device.type == "meta" and o.shape == q.shape
+    assert o.dtype == torch.bfloat16 and dict(_build.launches) == {}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qc, kc, vc = (torch.randn(t.shape, generator=gen, device=cuda)
+                  .to(torch.bfloat16) for t in (q, k, k))
+    got = flash_ops.flash_attention(qc, kc, vc, causal=True)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {flash_route(torch.bfloat16, 64): 1}
+    want = flash_attention_ref(qc, kc, vc, causal=True)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+    ins = _wkv_inputs(cuda, 1, 64, 32, 64, 64)
+    metas = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in ins]
+    _build.launches.clear()
+    o, state = wkv_ops.wkv_with_state(*metas)
+    assert o.device.type == "meta" and o.shape == (1, 64, 32, 64)
+    assert state.shape == (1, 64, 64, 64) and dict(_build.launches) == {}
+    wkv_ops.wkv_with_state(*ins)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv_split": 1}
+
+
+def test_one_rank_nccl_pipeline_equals_the_sequential_stack(cuda):
+    """``pipeline_apply`` over a one-rank NCCL "stage" mesh on the card: a
+    small stack of qwen2's smoke layers in bf16, 3 microbatches; the
+    outputs equal the stack run microbatch by microbatch bit for bit, each
+    microbatch launching the flash route once a layer."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed import pipeline_apply
+    from repro_torch.launch.mesh import ensure_process_group
+    from repro_torch.models.blocks import dense_layer_full
+    from repro_torch.models.model import _layers
+
+    cfg = get_smoke_config("qwen2_0_5b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    blocks = params["blocks"]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((3, 1, 64, cfg.d_model), generator=gen,
+                    device=cuda).to(cfg.param_dtype)
+
+    def stage_fn(p, h):
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[0],
+                                                                -1)
+        for p_l in _layers(p):
+            h = dense_layer_full(cfg, p_l, h, pos, cfg.sliding_window)[0]
+        return h
+
+    assert not dist.is_initialized()
+    ensure_process_group()
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("stage",))
+        _build.launches.clear()
+        got = pipeline_apply(stage_fn, blocks, x, mesh)
+        torch.cuda.synchronize()
+        route = flash_route(cfg.param_dtype, cfg.d_head)
+        assert dict(_build.launches) == {route: 3 * cfg.n_layers}
+    finally:
+        dist.destroy_process_group()
+    want = torch.stack([stage_fn(blocks, mb) for mb in x])
+    assert got.dtype == want.dtype and torch.equal(got, want)

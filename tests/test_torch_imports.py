@@ -45,6 +45,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.distributed.compression\n"
             "import repro_torch.distributed.shardings\n"
             "import repro_torch.launch.mesh\n"
+            "import repro_torch.distributed.pipeline\n"
+            "import repro_torch.launch.hlo_stats\n"
+            "import repro_torch.launch.dryrun\n"
+            "from repro_torch.distributed import pipeline_apply\n"
             "from repro_torch.elastic import ElasticTrainer\n"
             "from repro_torch.launch.steps import input_specs\n"
             "import warnings\n"
