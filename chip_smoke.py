@@ -49,7 +49,7 @@ plain version):
    ``kv_len`` cases; the new families' shapes: olmoe's prefill (4, 16,
    512, 128) bf16, deepseek-v2's MLA (1, 128, 512, 192) bf16 with v's
    columns 128-191 zero (those output columns must be exactly 0, on the
-   CUDA-core route), seamless's cross-attention (4, 16, 512, 64) against
+   tensor-core route), seamless's cross-attention (4, 16, 512, 64) against
    Skv 512 and a ragged 1,000, non-causal, in bf16 and float32; all at
    2e-5 (float32) / 2e-2 (bf16); the cases at the
    models' shapes draw inputs large enough that each tolerance lies below
@@ -60,8 +60,8 @@ plain version):
    then in float32: ``o`` and the final state against the plain chunked
    version, ``o`` against ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o``
    at 2e-2). Every case runs through the route its dispatch picks
-   (``flash_route``: bf16 with D <= 128 on ``flash_attention_mma``, the
-   rest on ``flash_attention``; ``wkv_route``: 64 x 64 heads in chunks of
+   (``flash_route``: bf16 at any D <= 256 on ``flash_attention_mma``,
+   float32 on ``flash_attention``; ``wkv_route``: 64 x 64 heads in chunks of
    16 on ``wkv_split``, the rest on ``wkv``), and the phase checks that
    route launched.
 4. Lookup path at real size: a ``DeviceRaceTable`` of 524,287 buckets x 8
@@ -134,9 +134,9 @@ plain version):
    ``ServingWorker`` replicas on one ``ExecutablePool`` (a cold start,
    then a pool hit). Logits finite, tokens in [0, vocab), cache trees,
    shapes and dtypes JAX's; a prefill launches exactly 24 (qwen2), 16
-   (olmoe), 6 (zamba2's shared block) and 36 (seamless: 12 encoder, 12
-   decoder, 12 cross) ``flash_attention_mma``, 4 ``flash_attention``
-   (deepseek's MLA at D = 192) and 32 ``wkv_split`` (rwkv6); none in
+   (olmoe), 4 (deepseek's MLA at D = 192), 6 (zamba2's shared block) and
+   36 (seamless: 12 encoder, 12 decoder, 12 cross) ``flash_attention_mma``
+   and 32 ``wkv_split`` (rwkv6), none of ``flash_attention``; none in
    decode. Then prefill ms and tokens/s, decode ms per step, both
    bootstraps, the card's idle share over a prefill (``torch.profiler``)
    and the peak allocated memory.
@@ -154,18 +154,19 @@ plain version):
 10. Model kernel times, each entry point at the shape its main-path run
     gives it: device time per launch, its ratio to its bound and to
     ``scaled_dot_product_attention`` (flash; WKV has no library call), the
-    plain version's time; then both flash routes at the new families'
+    plain version's time; then the bf16 flash route at the new families'
     prefill shapes (olmoe, deepseek-v2's MLA, zamba2's shared block,
-    seamless's encoder / cross and decoder attention) beside SDPA in
-    turns. The one-CTA-a-head ``wkv`` route is on no
+    seamless's encoder / cross and decoder attention) and at gemma2-2b's
+    (D = 256, served by no phase) beside SDPA in turns. The
+    one-CTA-a-head ``wkv`` route is on no
     main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
     timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
     tokens it would scan, and held there on ``o`` and the final state.
     Then the registers, stack, spills and static shared memory of the
     redesigned kernels from the ptxas report of the build; gate: the
     lookup kernels (sharded, which the tiled routes launch at one shard,
-    and scalar) and ``chunk_gather_byval`` have a 0-byte stack frame and no
-    spills.
+    and scalar), ``chunk_gather_byval`` and ``flash_mma_kernel`` at
+    DP = 192 (deepseek's MLA) have a 0-byte stack frame and no spills.
 11. Training path. First the kernels' autograd ``Function``s at the train
     shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
     train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
@@ -445,7 +446,7 @@ SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024,
               dict(arch="olmoe_1b_7b", batch=4, prompt=512, max_len=1024,
                    route="flash_attention_mma"),
               dict(arch="deepseek_v2_236b", batch=4, prompt=512,
-                   max_len=1024, route="flash_attention", n_layers=4),
+                   max_len=1024, route="flash_attention_mma", n_layers=4),
               dict(arch="zamba2_1_2b", batch=4, prompt=512, max_len=1024,
                    route="flash_attention_mma"),
               dict(arch="seamless_m4t_medium", batch=4, prompt=512,
@@ -2212,45 +2213,48 @@ PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
                "race_lookup_scalar_byval": "race_lookup_scalar_byval_kernel",
                "race_lookup_scalar": "race_lookup_scalar_kernel",
                "chunk_gather_byval": "chunk_gather_byval_kernel"}
+#: compiled instances gated the same way, by the name ``ptxas_report`` gives
+#: them: the tensor-core flash kernel at DP = 192 runs deepseek-v2's MLA
+#: prefill (DP = 256, gemma2's, is reported only)
+PTXAS_GATED_INSTANCES = ("flash_mma_kernelILi192E",)
 
 
-def ptxas_report(libraries=("flash_attention", "wkv", "race_lookup",
-                            "serverless_stage"),
-                 kernels=("flash_mma_kernel", "wkv_split_kernel",
-                          *set(PTXAS_GATED.values()))) -> dict:
+#: the libraries whose kernels ``ptxas_phase`` reports, and those kernels
+PTXAS_LIBRARIES = ("flash_attention", "wkv", "race_lookup", "serverless_stage")
+PTXAS_KERNELS = ("flash_mma_kernel", "wkv_split_kernel",
+                 *set(PTXAS_GATED.values()))
+
+
+def ptxas_report(log: str, kernels=PTXAS_KERNELS) -> dict:
     """Registers, stack, spills and static shared memory of every compiled
-    instance of ``kernels``, read from
-    ``_build``'s ``-Xptxas -v`` logs of ``libraries`` (the tensor-core flash
-    kernel and the split WKV kernel take their shared memory dynamically,
-    at launch: the sizes of ``MmaTile`` and ``SplitSmem`` in their
-    sources)."""
+    instance of ``kernels``, read from the text of an ``-Xptxas -v`` build
+    log (the tensor-core flash kernel and the split WKV kernel take their
+    shared memory dynamically, at launch: the sizes of ``MmaTile`` and
+    ``SplitSmem`` in their sources)."""
     out: dict = {}
-    for lib in libraries:
-        fn = None
-        for line in (_build.library_path(lib).with_suffix(".log")
-                     .read_text().splitlines()):
-            m = re.search(r"Compiling entry function '([^']+)'", line)
-            if m:
-                name = m.group(1)
-                hit = [k for k in kernels if k in name]
-                fn = name[name.index(hit[0]):].split("EEv")[0] if hit \
-                    else None
-                if fn:
-                    out[fn] = {}
-                continue
-            if fn is None:
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m:
-                out[fn].update(stack_bytes=int(m[1]),
-                               spill_store_bytes=int(m[2]),
-                               spill_load_bytes=int(m[3]))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                smem = re.search(r"(\d+) bytes smem", line)
-                out[fn].update(registers=int(m[1]), static_smem_bytes=int(
-                    smem[1]) if smem else 0)
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            hit = [k for k in kernels if k in name]
+            fn = name[name.index(hit[0]):].split("EEv")[0] if hit else None
+            if fn:
+                out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack_bytes=int(m[1]),
+                           spill_store_bytes=int(m[2]),
+                           spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[fn].update(registers=int(m[1]), static_smem_bytes=int(
+                smem[1]) if smem else 0)
     return out
 
 
@@ -2292,9 +2296,10 @@ def _bound(nbytes, flops, peak):
 
 
 #: the flash-attention shapes of the bf16 prefills on the main path
-#: (``SERVE_SIZE``): (arch, what, b, hq, hkv, sq, skv, d, causal, columns of
-#: v that are not zero). The first row is the headline of
-#: ``flash_attention_mma`` in the ``kernels`` line.
+#: (``SERVE_SIZE``), and gemma2-2b's prefill (D = 256, served by no phase):
+#: (arch, what, b, hq, hkv, sq, skv, d, causal, columns of v that are not
+#: zero). The first row is the headline of ``flash_attention_mma`` in the
+#: ``kernels`` line.
 FLASH_MODEL_SHAPES = (
     ("qwen2_0_5b", "attention", 8, 14, 2, 512, 512, 64, True, None),
     ("olmoe_1b_7b", "attention", 4, 16, 16, 512, 512, 128, True, None),
@@ -2305,6 +2310,7 @@ FLASH_MODEL_SHAPES = (
      64, False, None),
     ("seamless_m4t_medium", "decoder self", 4, 16, 16, 512, 512, 64, True,
      None),
+    ("gemma2_2b", "attention", 4, 8, 4, 512, 512, 256, True, None),
 )
 
 
@@ -2491,9 +2497,12 @@ def measure_model_kernels(device, flash_shapes) -> dict:
 
 def ptxas_phase() -> dict:
     """Print the ptxas report of every redesigned kernel; fail unless each
-    gated one has a 0-byte stack frame and no spills. Returns the report by
-    entry point."""
-    ptxas = ptxas_report()
+    gated one (``PTXAS_GATED``, ``PTXAS_GATED_INSTANCES``) has a 0-byte
+    stack frame and no spills. Returns the report by entry point."""
+    ptxas = {}
+    for lib in PTXAS_LIBRARIES:
+        ptxas.update(ptxas_report(
+            _build.library_path(lib).with_suffix(".log").read_text()))
     for fn, rep in ptxas.items():
         print(f"ptxas {fn}: {rep}")
     by_entry = {"flash_attention_mma": "flash_mma_kernel",
@@ -2501,13 +2510,18 @@ def ptxas_phase() -> dict:
     out = {entry: {fn: rep for fn, rep in ptxas.items()
                    if fn.startswith(kernel)}
            for entry, kernel in by_entry.items()}
+    gated = {fn: rep for entry in PTXAS_GATED
+             for fn, rep in out[entry].items()}
     for entry in PTXAS_GATED:
         check(out[entry], f"ptxas: no report of {entry}'s kernel")
-        for fn, rep in out[entry].items():
-            check(rep.get("stack_bytes") == 0
-                  and rep.get("spill_store_bytes") == 0
-                  and rep.get("spill_load_bytes") == 0,
-                  f"ptxas {fn}: stack or spills {rep}")
+    for fn in PTXAS_GATED_INSTANCES:
+        check(fn in ptxas, f"ptxas: no report of {fn}")
+        gated[fn] = ptxas[fn]
+    for fn, rep in gated.items():
+        check(rep.get("stack_bytes") == 0
+              and rep.get("spill_store_bytes") == 0
+              and rep.get("spill_load_bytes") == 0,
+              f"ptxas {fn}: stack or spills {rep}")
     return out
 
 
@@ -3419,6 +3433,15 @@ def _run_summary(r: dict) -> dict:
                 decode_idle_share=r["decode_profile"]["idle_share"])
 
 
+def _by_shape_row(row: dict, route: str, serving: dict) -> dict:
+    """One flash shape's times for the ``kernels`` line, with the launches
+    of ``route`` counted in its model's prefill; a shape of a model that no
+    phase serves is ``served: false`` and has no count."""
+    served = row["arch"] in serving
+    return dict(row, served=served, launches_a_prefill=serving[row["arch"]][
+        "prefill_launches"].get(route, 0) if served else None)
+
+
 def elastic_phase(device, *, arch, batch, seq, steps, seed,
                   config=get_config) -> dict:
     """``ElasticTrainer`` on one card (one rank: a process group of this
@@ -4035,9 +4058,8 @@ def main(argv) -> int:
             consistency_models={a: r for a, r in by_arch.items()
                                 if name in r["launches"]
                                 and a != "qwen2_0_5b"},
-            by_shape=[dict(r, launches_a_prefill=serving[r["arch"]][
-                "prefill_launches"].get(name, 0))
-                for r in flash_shapes if r["route"] == name])
+            by_shape=[_by_shape_row(r, name, serving)
+                      for r in flash_shapes if r["route"] == name])
     #: the batch or shape each lookup and gather entry point is reported at
     headline = {"race_lookup_tiled_byval": 512, "race_lookup_tiled": 4096,
                 "race_lookup_scalar_byval": 4096, "race_lookup_scalar": 4096,

@@ -31,43 +31,61 @@
 // launched last tile first: the last tile of a head visits the most kv
 // tiles, so the longest CTAs start first and the short ones fill the tail.
 //
-// Two routes, each its own C entry point, chosen by dtype and D:
+// Two routes, each its own C entry point, chosen by dtype alone:
 //
-// flash_attention_mma (bfloat16, D <= 128; D padded to 32/64/96/128): the
-// tensor-core route. What bounds it on this card: at qwen2-0.5b's prefill
-// shape (8 x 14/2 heads, S = 512, D = 64) the causal work is ~3.8 GFLOP
-// against ~17 MB of HBM traffic, 224 FLOP a byte, just under the bf16
-// tensor-core ridge (~295), so at the card's peaks the bytes bound it
-// (~5 us). Design: one CTA of four warps per (b*Hq + h, 64-row q tile);
-// each warp owns 16 query rows. QK^T and P.V run as bf16
-// mma.sync.m16n8k16 with float32 accumulators (bf16 x bf16 products are
-// exact in float32, as the Pallas kernel's widened product is). The score
-// fragment stays in registers: the softmax's row max and row sum reduce
-// across the four threads of a quad with shuffles, and the score
-// accumulator, rounded to bf16, is in registers the A operand of P.V.
-// Q, K and V tiles stay bf16 in shared memory with rows padded by 16 bytes
-// (an odd number of 16-byte units a row: ldmatrix's eight row addresses
-// fall in eight different bank groups, no conflicts) and are read with
-// ldmatrix (.trans for V); Q's fragments are reread from shared memory at
-// each kv tile rather than held, so that registers stay under the cap
-// that lets 4 / 3 / 2 CTAs share an SM (D <= 64 / 96 / 128). K/V tiles
-// are double-buffered with 16-byte cp.async, so the next tile's copy
-// overlaps this tile's products; a view whose rows are not 16-byte
-// aligned is copied by plain loads instead. A tile that no mask and no
-// key past Skv reaches skips the per-element mask tests.
-// Each q head of a GQA group reads its K/V tiles itself (they stay in the
-// 50 MB L2); sharing them across the group in one CTA is not done.
+// flash_attention_mma (bfloat16, D <= 256; D padded to 32/64/96/128/192/
+// 256): the tensor-core route. Design: one CTA of four warps per
+// (b*Hq + h, 64-row q tile); each warp owns 16 query rows. QK^T and P.V
+// run as bf16 mma.sync.m16n8k16 with float32 accumulators (bf16 x bf16
+// products are exact in float32, as the Pallas kernel's widened product
+// is). The score fragment stays in registers: the softmax's row max and
+// row sum reduce across the four threads of a quad with shuffles, and the
+// score accumulator, rounded to bf16, is in registers the A operand of
+// P.V. Q, K and V tiles stay bf16 in shared memory with rows padded by 16
+// bytes (an odd number of 16-byte units a row: ldmatrix's eight row
+// addresses fall in eight different bank groups, no conflicts) and are
+// read with ldmatrix (.trans for V); Q's fragments are reread from shared
+// memory at each kv tile rather than held, so that registers stay under
+// the cap that lets 4 / 3 / 2 CTAs share an SM (D <= 64 / 96 / 128). K
+// tiles are double-buffered with 16-byte cp.async, so the next tile's copy
+// overlaps this tile's products, and so are V tiles, except where one V
+// stage lets two CTAs share an SM (DP = 192, below); a view whose rows are
+// not 16-byte aligned is copied by plain loads instead. A tile that no
+// mask and no key past Skv reaches skips the per-element mask tests. Each
+// q head of a GQA group reads its K/V tiles itself (they stay in the 50 MB
+// L2); sharing them across the group in one CTA is not done.
 //
-// flash_attention (float32 at any D <= 256, bfloat16 at 128 < D <= 256):
-// the CUDA-core route. Float32 inputs are multiplied in full float32 (no
-// TF32), and bf16 at D = 256 keeps it too: its 16 x 256 float32
-// accumulator a warp would need 128 registers a thread beside the scores.
-// Every product is a float32 FMA (67 TFLOP/s peak). One CTA per
-// (b*Hq + h, q tile); the Q tile, one K and one V tile and the score tile
-// live in shared memory as float32 (rows padded by one float against bank
-// conflicts); the accumulator lives in registers, 128 threads each owning
-// a (BQ/16) x (DP/8) block of it; each warp runs the softmax of a quarter
-// of the rows with shuffles.
+// What bounds it on this card: at qwen2-0.5b's prefill shape (8 x 14/2
+// heads, S = 512, D = 64) the causal work is ~3.8 GFLOP against ~17 MB of
+// HBM traffic, 224 FLOP a byte; at deepseek-v2's MLA prefill (4 x 128
+// heads, S = 512, D = 192, v zero-padded from 128 columns) ~51.6 GFLOP
+// against ~403 MB, ~128 FLOP a byte. Both lie under the bf16 tensor-core
+// ridge (~295 FLOP a byte), so at the card's peaks the bytes bound them
+// (~5 us and ~0.12 ms).
+//
+// Wide heads (DP = 192, 256) keep the 64 x 64 tile. The tile is part of
+// the function: a row whose visited keys are all masked averages the keys
+// of the tiles it visits, so another BQ or BK would change such rows.
+// The price is registers and shared memory: a warp's 16 x DP float32
+// accumulator takes DP / 2 registers a thread (96 at 192, 128 at 256)
+// beside the 32 of its 16 x 64 score fragment, so one or two CTAs fit an
+// SM at 255 registers a thread. Q and two stages of K and V take 128,000
+// B at DP = 192 and 168,960 B at DP = 256, one CTA an SM; at DP = 192 a
+// single V stage (102,400 B) lets two CTAs share an SM, and its V copy
+// overlaps the tile's Q K^T and softmax instead of the previous tile's
+// products. With four warps an SM the kernel stalls on its own
+// latencies, so a second CTA is worth more than a second V stage: at the
+// MLA shape it runs in ~0.6 of the two-stage time (an H100,
+// tools/flash_variants.py).
+//
+// flash_attention (float32, D <= 256): the CUDA-core route. Float32
+// inputs are multiplied in full float32 (no TF32): every product is a
+// float32 FMA (67 TFLOP/s peak). One CTA per (b*Hq + h, q tile); the Q
+// tile, one K and one V tile and the score tile live in shared memory as
+// float32 (rows padded by one float against bank conflicts); the
+// accumulator lives in registers, 128 threads each owning a (BQ/16) x
+// (DP/8) block of it; each warp runs the softmax of a quarter of the rows
+// with shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,26 +114,6 @@ struct Params {
   float scale, cap;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// p as the P.V product sees it: rounded to v's dtype
-template <typename T>
-__device__ __forceinline__ float as_v_dtype(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -142,7 +140,7 @@ struct Tile {
   static constexpr size_t bytes = sizeof(float) * floats;
 };
 
-template <typename T, int DP, int BQ, int BK>
+template <int DP, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   using L = Tile<DP, BQ, BK>;
   constexpr int QS = L::QS, SS = L::SS;
@@ -174,15 +172,15 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   const int q_start = q_tile(p.causal) * BQ;
   const int qlo = p.q0 + q_start;  // position of the tile's first row
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const auto* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const auto* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const auto* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
   for (int i = tid; i < BQ * DP; i += kThreads) {
     const int r = i / DP, c = i % DP;
     const int row = q_start + r;
     Qs[r * QS + c] =
-        (row < p.sq && c < p.d) ? to_f32(q[row * p.q_ss + c]) : 0.f;
+        (row < p.sq && c < p.d) ? q[row * p.q_ss + c] : 0.f;
   }
   for (int r = tid; r < BQ; r += kThreads) {
     m_s[r] = kNegInf;
@@ -207,8 +205,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
       const int r = i / DP, c = i % DP;
       const int key = k_start + r;
       const bool in = key < p.skv && c < p.d;
-      Ks[r * QS + c] = in ? to_f32(k[key * p.k_ss + c]) : 0.f;
-      Vs[r * DP + c] = in ? to_f32(v[key * p.v_ss + c]) : 0.f;
+      Ks[r * QS + c] = in ? k[key * p.k_ss + c] : 0.f;
+      Vs[r * DP + c] = in ? v[key * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -270,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
       for (int j = 0; j < CPL; ++j) {
         const float e = expf(sv[j] - m_new);
         sum += e;
-        Ss[r * SS + lane + 32 * j] = as_v_dtype<T>(e);
+        Ss[r * SS + lane + 32 * j] = e;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -303,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
   }
   __syncthreads();
 
-  T* o = static_cast<T*>(p.o) + bh * static_cast<int64_t>(p.sq) * p.d;
+  auto* o = static_cast<float*>(p.o) + bh * static_cast<int64_t>(p.sq) * p.d;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = tr + kRowGroups * i;
@@ -314,15 +312,15 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
     for (int j = 0; j < OPT; ++j) {
       const int c = tc + kColGroups * j;
       if (c < p.d)
-        o[static_cast<int64_t>(row) * p.d + c] = from_f32<T>(acc[i][j] / l);
+        o[static_cast<int64_t>(row) * p.d + c] = acc[i][j] / l;
     }
   }
 }
 
-template <typename T, int DP, int BQ, int BK>
+template <int DP, int BQ, int BK>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   using L = Tile<DP, BQ, BK>;
-  auto kernel = flash_kernel<T, DP, BQ, BK>;
+  auto kernel = flash_kernel<DP, BQ, BK>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -338,11 +336,11 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 int dispatch_f32(const Params& p, int batch, cudaStream_t stream) {
-  if (p.d <= 16) return launch<float, 16, 64, 64>(p, batch, stream);
-  if (p.d <= 32) return launch<float, 32, 64, 64>(p, batch, stream);
-  if (p.d <= 64) return launch<float, 64, 64, 64>(p, batch, stream);
-  if (p.d <= 128) return launch<float, 128, 64, 32>(p, batch, stream);
-  return launch<float, 256, 32, 32>(p, batch, stream);
+  if (p.d <= 16) return launch<16, 64, 64>(p, batch, stream);
+  if (p.d <= 32) return launch<32, 64, 64>(p, batch, stream);
+  if (p.d <= 64) return launch<64, 64, 64>(p, batch, stream);
+  if (p.d <= 128) return launch<128, 64, 32>(p, batch, stream);
+  return launch<256, 32, 32>(p, batch, stream);
 }
 
 
@@ -351,14 +349,29 @@ constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
 constexpr int kMmaBQ = 64;
 constexpr int kMmaBK = 64;
 
+// The shared memory of an H100 SM (228 KiB), of which the runtime keeps
+// 1 KiB for each CTA
+constexpr size_t kSmemPerSM = 228 * 1024;
+constexpr size_t kSmemPerCTA = 1024;
+
+// CTAs that one SM holds at `bytes` of dynamic shared memory each
+constexpr int smem_ctas(size_t bytes) {
+  return static_cast<int>(kSmemPerSM / (bytes + kSmemPerCTA));
+}
+
+// Shared memory of the tensor-core route: Q, two stages of K, and two
+// stages of V, or one (SV) where that lets two CTAs share an SM.
 template <int DP>
 struct MmaTile {
   static constexpr int RS = DP + 8;  // row stride in bf16: 16 bytes of pad
   static constexpr int elems = kMmaBQ * RS;  // one Q, K or V tile
-  // Q, then two stages of (K, V)
-  static constexpr size_t bytes = sizeof(__nv_bfloat16) * 5 * elems;
+  static constexpr size_t tile = sizeof(__nv_bfloat16) * elems;
+  static constexpr bool SV =
+      smem_ctas(5 * tile) < 2 && smem_ctas(4 * tile) >= 2;
+  static constexpr int tiles = SV ? 4 : 5;
+  static constexpr size_t bytes = tiles * tile;
   static_assert(kMmaBQ == kMmaBK, "one tile shape for Q, K and V");
-  static_assert(DP % 16 == 0 && DP <= 128, "DP: a multiple of 16, <= 128");
+  static_assert(DP % 16 == 0 && DP <= 256, "DP: a multiple of 16, <= 256");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -437,10 +450,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// CTAs an SM should hold: registers are capped at 65,536 / (128 x this)
+// CTAs an SM should hold: registers are capped at 65,536 / (128 x this),
+// 255 a thread from two CTAs down. No more than the shared tiles let in.
 template <int DP>
 constexpr int mma_min_blocks() {
-  return DP <= 64 ? 4 : (DP <= 96 ? 3 : 2);
+  constexpr int by_regs = DP <= 64 ? 4 : (DP <= 96 ? 3 : 2);
+  constexpr int by_smem = smem_ctas(MmaTile<DP>::bytes);
+  return by_regs < by_smem ? by_regs : by_smem;
 }
 
 template <int DP>
@@ -454,8 +470,8 @@ flash_mma_kernel(Params p, int vec) {
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* const Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  auto Ks = [&](int st) { return Qs + (1 + 2 * st) * L::elems; };
-  auto Vs = [&](int st) { return Qs + (2 + 2 * st) * L::elems; };
+  auto Ks = [&](int st) { return Qs + (1 + st) * L::elems; };
+  auto Vs = [&](int st) { return Qs + (3 + (L::SV ? 0 : st)) * L::elems; };
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -490,14 +506,26 @@ flash_mma_kernel(Params p, int vec) {
     kt_lo = edge < 0 ? 0 : static_cast<int>(first < nk ? first : nk);
   }
 
+  // Copy groups, oldest first: Q and the first K tile (and V tile, with
+  // two V stages); the first V tile (with one V stage; else empty); then
+  // each kv tile commits one group at its start, the next K (and V) tile,
+  // and one at its end, the next V tile (with one V stage; else empty).
+  // So at the start of tile kt only the newest two groups may still be in
+  // flight, and K(kt) is in place; with one V stage, V(kt) is in place
+  // once only the newest one is.
   const bool vec_load = vec != 0;
   load_tile<DP>(Qs, q, p.q_ss, q_start, p.sq, p.d, vec_load, tid);
   if (kt_lo < kt_hi) {
     load_tile<DP>(Ks(0), k, p.k_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
                   tid);
+    if (!L::SV)
+      load_tile<DP>(Vs(0), v, p.v_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
+                    tid);
+  }
+  cp_async_commit();
+  if (L::SV && kt_lo < kt_hi)
     load_tile<DP>(Vs(0), v, p.v_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
                   tid);
-  }
   cp_async_commit();
 
   float acc[OT][4];
@@ -517,14 +545,13 @@ flash_mma_kernel(Params p, int vec) {
     if (kt + 1 < kt_hi) {  // prefetch the next tile into the other stage
       load_tile<DP>(Ks(st ^ 1), k, p.k_ss, (kt + 1) * kMmaBK, p.skv, p.d,
                     vec_load, tid);
-      load_tile<DP>(Vs(st ^ 1), v, p.v_ss, (kt + 1) * kMmaBK, p.skv, p.d,
-                    vec_load, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      if (!L::SV)
+        load_tile<DP>(Vs(st ^ 1), v, p.v_ss, (kt + 1) * kMmaBK, p.skv, p.d,
+                      vec_load, tid);
     }
-    __syncthreads();  // tile kt (and, the first time, Q) is in place
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();  // K(kt) (and, the first time, Q) is in place
 
     // S = Q K^T for the warp's 16 rows x 64 keys, in registers
     const __nv_bfloat16* ks_tile = Ks(st);
@@ -611,6 +638,11 @@ flash_mma_kernel(Params p, int vec) {
       acc[j][3] *= corr[1];
     }
 
+    if (L::SV) {
+      cp_async_wait<1>();
+      __syncthreads();  // V(kt) is in place
+    }
+
     // acc += P V
     const __nv_bfloat16* vs_tile = Vs(st);
 #pragma unroll
@@ -627,6 +659,10 @@ flash_mma_kernel(Params p, int vec) {
       }
     }
     __syncthreads();  // stage st is consumed before it is loaded again
+    if (L::SV && kt + 1 < kt_hi)
+      load_tile<DP>(Vs(0), v, p.v_ss, (kt + 1) * kMmaBK, p.skv, p.d,
+                    vec_load, tid);
+    cp_async_commit();
   }
   cp_async_wait<0>();
 
@@ -668,9 +704,15 @@ int launch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
   auto kernel = flash_mma_kernel<DP>;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    // all of the SM's unified memory as shared memory: room for
+    // mma_min_blocks CTAs' tiles
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::bytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
@@ -685,6 +727,8 @@ int dispatch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
   if (p.d <= 64) return launch_mma<64>(p, batch, vec, stream);
   if (p.d <= 96) return launch_mma<96>(p, batch, vec, stream);
   if (p.d <= 128) return launch_mma<128>(p, batch, vec, stream);
+  if (p.d <= 192) return launch_mma<192>(p, batch, vec, stream);
+  if (p.d <= 256) return launch_mma<256>(p, batch, vec, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -716,24 +760,22 @@ static bool make_params(Params* p, FLASH_ARGS) {
   return true;
 }
 
-// the CUDA-core route: float32 at any D <= 256, bfloat16 at 128 < D <= 256
+// the CUDA-core route: float32, D <= 256
 int flash_attention(FLASH_ARGS) {
   Params p;
-  if (!(dtype == 0 || (dtype == 1 && d > 128)) ||
+  if (dtype != 0 ||
       !make_params(&p, q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                    v_sh, v_ss, batch, hq, hkv, sq, skv, d, dtype, causal,
                    has_window, window, has_cap, cap, has_kv_len, kv_len, q0,
                    scale, stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16, 256, 32, 32>(p, batch, s);
-  return dispatch_f32(p, batch, s);
+  return dispatch_f32(p, batch, static_cast<cudaStream_t>(stream));
 }
 
-// the tensor-core route: bfloat16, D <= 128
+// the tensor-core route: bfloat16, D <= 256
 int flash_attention_mma(FLASH_ARGS) {
   Params p;
-  if (dtype != 1 || d > 128 ||
+  if (dtype != 1 ||
       !make_params(&p, q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                    v_sh, v_ss, batch, hq, hkv, sq, skv, d, dtype, causal,
                    has_window, window, has_cap, cap, has_kv_len, kv_len, q0,

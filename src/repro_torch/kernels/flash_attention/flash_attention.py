@@ -11,13 +11,13 @@ picks its own tiles. The library is built on first use (see
 ``kernels/_build.py``).
 
 Two routes, each its own C entry point, so that the launch counter shows
-which one ran; :func:`flash_route` picks one from the dtype and the head
-dim, and nothing falls back from one to the other:
+which one ran; :func:`flash_route` picks one from the dtype, and nothing
+falls back from one to the other:
 
-- ``flash_attention_mma``: bfloat16 with D <= 128, QK^T and P.V on the
+- ``flash_attention_mma``: bfloat16 at any D <= 256, QK^T and P.V on the
   tensor cores (``mma.sync``, float32 accumulators);
-- ``flash_attention``: float32 (full float32 FMAs, no TF32) and bfloat16
-  with D > 128, on the CUDA cores.
+- ``flash_attention``: float32 at any D <= 256, on the CUDA cores (full
+  float32 FMAs, no TF32).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ ROUTES = ("flash_attention_mma", "flash_attention")
 _SIGNATURES = {route: _ARGS for route in ROUTES}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MMA_MAX_HEAD_DIM = 128
 #: BQ = BK of the tensor-core route: a row whose visited keys are all
 #: masked averages the keys of the tiles it visits
 MMA_TILE = 64
@@ -45,10 +44,11 @@ _INT_MAX = 2 ** 31 - 1
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
-    """The C entry point for inputs of ``dtype`` and head dim ``d``: the
-    tensor-core route for bfloat16 up to D = 128, else the CUDA-core one
-    (float32 is multiplied in full float32, never TF32)."""
-    if dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM:
+    """The C entry point for inputs of ``dtype``: the tensor-core route for
+    bfloat16, the CUDA-core one for float32 (multiplied in full float32,
+    never TF32). Both take every head dim ``d`` up to ``MAX_HEAD_DIM``, so
+    ``d`` does not change the route."""
+    if dtype == torch.bfloat16:
         return "flash_attention_mma"
     return "flash_attention"
 

@@ -5,8 +5,13 @@ as ``tests/test_kernels.py`` runs it), its jnp oracle and the model's
 ``dense_attention``, and to the port's op, which on CPU tensors runs its
 plain PyTorch version. Tolerances are the reference's own: 2e-5 in float32
 and 2e-2 in bfloat16. The CUDA kernel is held against the same plain
-version on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+version on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``); the
+last tests check how ``chip_smoke.py`` reports that kernel's build and
+launches.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -152,13 +157,79 @@ def test_numpy_inputs_and_impl_names():
     (torch.bfloat16, 96, "flash_attention_mma"),    # phi3
     (torch.bfloat16, 128, "flash_attention_mma"),
     (torch.bfloat16, 1, "flash_attention_mma"),
-    (torch.bfloat16, 129, "flash_attention"),
-    (torch.bfloat16, 256, "flash_attention"),       # gemma2
+    (torch.bfloat16, 129, "flash_attention_mma"),
+    (torch.bfloat16, 192, "flash_attention_mma"),   # deepseek-v2's MLA
+    (torch.bfloat16, 256, "flash_attention_mma"),   # gemma2
     (torch.float32, 64, "flash_attention"),         # no TF32
     (torch.float32, 256, "flash_attention"),
 ])
 def test_route_dispatch(dtype, d, route):
-    """bfloat16 up to D = 128 takes the tensor-core route; float32 (full
-    float32 products) and bfloat16 above 128 the CUDA-core one."""
+    """bfloat16 at any D up to 256 takes the tensor-core route; float32
+    (full float32 products) the CUDA-core one."""
     assert flash_route(dtype, d) == route
     assert route in ROUTES
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+#: an ``-Xptxas -v`` build log in the form nvcc prints it
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi192EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_mma_kernelILi192EEEvNS_6ParamsEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 239 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi96EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_mma_kernelILi96EEEvNS_6ParamsEi
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelILi64ELi64ELi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi64ELi64ELi64EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 2048 bytes smem, 480 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_instance_of_the_named_kernels():
+    """``chip_smoke.ptxas_report`` parses the text of a build log: one entry
+    an instance of the kernels it is asked for, by the name its gate uses,
+    and nothing of the others."""
+    smoke = _smoke()
+    rep = smoke.ptxas_report(PTXAS_LOG)
+    assert rep == {
+        "flash_mma_kernelILi192E": dict(
+            stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+            registers=239, static_smem_bytes=0),
+        "flash_mma_kernelILi96E": dict(
+            stack_bytes=24, spill_store_bytes=24, spill_load_bytes=24,
+            registers=168, static_smem_bytes=0)}
+    assert set(smoke.PTXAS_GATED_INSTANCES) <= set(rep)
+    both = smoke.ptxas_report(PTXAS_LOG, ("flash_mma_kernel", "flash_kernel"))
+    assert both["flash_kernelILi64ELi64ELi64E"] == dict(
+        stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+        registers=128, static_smem_bytes=2048)
+    assert len(both) == 3
+
+
+def test_kernels_line_counts_launches_only_of_served_models():
+    """A flash shape of a model that a phase served carries the launches
+    counted in that prefill (0 where the route did not run); one of a model
+    that no phase serves has no count."""
+    smoke = _smoke()
+    served = {"deepseek_v2_236b": {"prefill_launches": {
+        "flash_attention_mma": 4}}}
+    row = dict(arch="deepseek_v2_236b", route="flash_attention_mma")
+    assert smoke._by_shape_row(row, "flash_attention_mma", served) == dict(
+        row, served=True, launches_a_prefill=4)
+    assert smoke._by_shape_row(row, "flash_attention", served)[
+        "launches_a_prefill"] == 0
+    gemma = dict(arch="gemma2_2b", route="flash_attention_mma")
+    assert smoke._by_shape_row(gemma, "flash_attention_mma", served) == dict(
+        gemma, served=False, launches_a_prefill=None)
+    assert any(r[0] == "gemma2_2b" for r in smoke.FLASH_MODEL_SHAPES)

@@ -745,12 +745,14 @@ def test_flash_mma_route_takes_strided_views(cuda):
     assert dict(_build.launches) == {"flash_attention_mma": 3}
 
 
+@pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_mma_row_with_all_visited_keys_masked(cuda, causal):
+def test_flash_mma_row_with_all_visited_keys_masked(cuda, causal, d):
     """kv_len = 0 masks every key: each row averages the keys of the tiles
     it visits (all of them without causality; tiles up to its q tile's
-    diagonal with it), p = 1 for each, as the Pallas kernel does."""
-    b, hq, hkv, s, d = 1, 2, 1, 200, 64
+    diagonal with it), p = 1 for each, as the Pallas kernel does; the
+    64 x 64 tile holds at the wide heads too."""
+    b, hq, hkv, s = 1, 2, 1, 200
     g = torch.Generator("cpu").manual_seed(4)
     q, k, v = (torch.randn(sh, generator=g).to(cuda, torch.bfloat16)
                for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
@@ -782,9 +784,9 @@ def test_flash_at_the_new_families_shapes(fp32_cuda, b, hq, sq, skv, d,
                                           causal, dtype, v_cols):
     """chip_smoke.py's new FLASH_CASES and the prefill shapes of
     FLASH_MODEL_SHAPES that no FLASH_CASES case has, each on the route
-    flash_route picks (bf16 D <= 128 on the tensor cores; float32 and bf16
-    D = 192 on the CUDA cores); MLA's v zero-padded from 128 to 192
-    columns gives output columns 128-191 of exactly 0."""
+    flash_route picks (bf16 at any D on the tensor cores, MLA's D = 192
+    included; float32 on the CUDA cores); MLA's v zero-padded from 128 to
+    192 columns gives output columns 128-191 of exactly 0."""
     g = torch.Generator("cpu").manual_seed(sq + skv + d)
     q, k, v = ((torch.randn(sh, generator=g) * 1.5).to(fp32_cuda, dtype)
                for sh in ((b, hq, sq, d), (b, hq, skv, d), (b, hq, skv, d)))
@@ -804,17 +806,80 @@ def test_flash_at_the_new_families_shapes(fp32_cuda, b, hq, sq, skv, d,
 
 
 def test_flash_routes_by_dtype_and_head_dim(fp32_cuda):
-    """bf16 up to D = 128 on the tensor cores, float32 and bf16 D = 256 on
+    """bf16 at any D up to 256 on the tensor cores, float32 at any D on
     the CUDA cores."""
     qs = {(dtype, d): torch.randn(1, 2, 64, d, device=fp32_cuda).to(dtype)
           for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
-                           (torch.float32, 64), (torch.bfloat16, 256))}
+                           (torch.bfloat16, 192), (torch.bfloat16, 256),
+                           (torch.float32, 64), (torch.float32, 256))}
     _build.launches.clear()
     for q in qs.values():
         flash_attention_cuda(q, q, q)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"flash_attention_mma": 2,
+    assert dict(_build.launches) == {"flash_attention_mma": 4,
                                      "flash_attention": 2}
+
+
+def _wide_qkv(cuda, b, hq, hkv, sq, skv, d, layout, seed):
+    """bf16 q, k, v drawn at 1.5: contiguous; head-transposed views of
+    (B, S, H, D) projections, as the model passes them; or k and v as
+    views whose rows start 2 bytes past a 16-byte boundary (the plain-load
+    path)."""
+    g = torch.Generator("cpu").manual_seed(seed)
+
+    def draw(h, s):
+        if layout == "views":
+            return (torch.randn(b, s, h, d, generator=g) * 1.5).to(
+                cuda, torch.bfloat16).transpose(1, 2)
+        return (torch.randn(b, h, s, d, generator=g) * 1.5).to(
+            cuda, torch.bfloat16)
+
+    q = draw(hq, sq)
+    if layout == "unaligned":
+        k, v = ((torch.randn(b, hkv, skv, d + 1, generator=g) * 1.5).to(
+            cuda, torch.bfloat16)[..., 1:] for _ in range(2))
+        assert k.data_ptr() % 16 == 2 and k.stride(-1) == 1
+    else:
+        k, v = draw(hkv, skv), draw(hkv, skv)
+    return q, k, v
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,causal,window,cap,kv_len,q0,layout,v_cols", [
+        (2, 8, 4, 512, 512, True, None, None, None, 0, "contiguous", None),
+        (1, 8, 4, 300, 300, True, 128, 50.0, None, 0, "contiguous", None),
+        (2, 4, 2, 64, 300, True, None, None, 250, 236, "contiguous", None),
+        (1, 4, 2, 100, 333, False, None, 30.0, None, 0, "contiguous", None),
+        (2, 8, 2, 96, 96, True, None, None, None, 0, "views", None),
+        (1, 4, 2, 130, 130, True, 48, None, 100, 0, "unaligned", None),
+        (2, 16, 16, 512, 512, True, None, None, None, 0, "contiguous", 128),
+    ])
+def test_flash_mma_wide_heads_equal_plain(cuda, d, b, hq, hkv, sq, skv,
+                                          causal, window, cap, kv_len, q0,
+                                          layout, v_cols):
+    """bf16 at 128 < D <= 256 on the tensor-core route (D = 160 padded to
+    192, 192 itself for deepseek-v2's MLA, 256 for gemma2) against the plain
+    version at 2e-2: GQA, window, softcap, kv_len, q0 > 0, ragged Sq and
+    Skv, head-transposed views, rows that are not 16-byte aligned, and v
+    zero-padded from 128 columns as MLA passes it (those output columns
+    exactly 0)."""
+    q, k, v = _wide_qkv(cuda, b, hq, hkv, sq, skv, d, layout, sq + skv + d)
+    if v_cols:
+        v[..., v_cols:] = 0
+    _build.launches.clear()
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               cap=cap, kv_len=kv_len, q0=q0)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_mma": 1}
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               cap=cap, kv_len=kv_len, q0=q0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float(want.float().abs().mean()) > 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if v_cols:
+        assert not got[..., v_cols:].any()
 
 
 def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,
