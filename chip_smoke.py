@@ -333,7 +333,7 @@ from repro_torch.elastic import ElasticTrainer, ExecutablePool  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_route)
+    flash_attention_cuda, flash_route, launches_by_shape)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.race_lookup import ops  # noqa: E402
@@ -1669,6 +1669,14 @@ FLASH_CASES = (
      None, "float32", 1.5),
     ("seamless cross ragged Skv fp32", 4, 16, 16, 512, 1000, 64, False,
      None, None, None, "float32", 1.5),
+    # the CUDA-core route's wide instances: MLA's consistency shape, gemma2's
+    # head dim with its window and softcap over ragged lengths, and D = 96
+    ("MLA fp32 (deepseek-v2 consistency)", 1, 128, 128, 544, 544, 192, True,
+     None, None, None, "float32", 1.5, 128),
+    ("D 256 fp32", 1, 8, 4, 300, 300, 256, True, 128, 50.0, None, "float32",
+     0.5),
+    ("D 96 fp32", 1, 8, 4, 200, 200, 96, True, None, None, None, "float32",
+     0.5),
 )
 #: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay)
 WKV_CASES = (
@@ -2136,6 +2144,7 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
     batch = _model_batch(cfg, tokens, gen, cut)
     key = "dec_tokens" if cfg.family == "encdec" else "tokens"
     _build.launches.clear()
+    launches_by_shape.clear()
     with _RoutingLog() as full_log:
         hidden = forward_full(cfg, params, batch)[0]
     full = unembed_chunk(cfg, params, hidden[:, cut - 1:s - 1])
@@ -2144,6 +2153,8 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
                                 dict(batch, **{key: tokens[:, :cut]}), s)
     _sync(device)
     full_launches = dict(_build.launches)
+    shape_launches = {_call_key(*key): n for key, n
+                      in sorted(launches_by_shape.items())}
     want = {route: 2 * attn_calls(cfg)} \
         if torch.device(device).type == "cuda" else {}
     check(full_launches == want,
@@ -2182,7 +2193,7 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
     torch.cuda.empty_cache()
     return dict(arch=arch, n_layers=cfg.n_layers, reduced=reduced,
                 max_abs_err=max(errs), launches=full_launches,
-                routing=routing)
+                launches_by_shape=shape_launches, routing=routing)
 
 
 # --------------------------------------------- 11. model kernel timing
@@ -2213,24 +2224,28 @@ PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
                "race_lookup_scalar_byval": "race_lookup_scalar_byval_kernel",
                "race_lookup_scalar": "race_lookup_scalar_kernel",
                "chunk_gather_byval": "chunk_gather_byval_kernel"}
+#: the padded head dims of the CUDA-core flash kernel, one instance each
+FLASH_F32_DPS = (32, 64, 96, 128, 192, 256)
 #: compiled instances gated the same way, by the name ``ptxas_report`` gives
 #: them: the tensor-core flash kernel at DP = 192 runs deepseek-v2's MLA
-#: prefill (DP = 256, gemma2's, is reported only)
-PTXAS_GATED_INSTANCES = ("flash_mma_kernelILi192E",)
+#: prefill (DP = 256, gemma2's, is reported only); every instance of the
+#: CUDA-core one (float32)
+PTXAS_GATED_INSTANCES = ("flash_mma_kernelILi192E",
+                         *(f"flash_kernelILi{dp}E" for dp in FLASH_F32_DPS))
 
 
 #: the libraries whose kernels ``ptxas_phase`` reports, and those kernels
 PTXAS_LIBRARIES = ("flash_attention", "wkv", "race_lookup", "serverless_stage")
-PTXAS_KERNELS = ("flash_mma_kernel", "wkv_split_kernel",
+PTXAS_KERNELS = ("flash_mma_kernel", "flash_kernel", "wkv_split_kernel",
                  *set(PTXAS_GATED.values()))
 
 
 def ptxas_report(log: str, kernels=PTXAS_KERNELS) -> dict:
     """Registers, stack, spills and static shared memory of every compiled
     instance of ``kernels``, read from the text of an ``-Xptxas -v`` build
-    log (the tensor-core flash kernel and the split WKV kernel take their
-    shared memory dynamically, at launch: the sizes of ``MmaTile`` and
-    ``SplitSmem`` in their sources)."""
+    log (the flash kernels and the split WKV kernel take their shared
+    memory dynamically, at launch: the sizes of ``MmaTile``, ``F32Tile``
+    and ``SplitSmem`` in their sources)."""
     out: dict = {}
     fn = None
     for line in log.splitlines():
@@ -2312,16 +2327,102 @@ FLASH_MODEL_SHAPES = (
      None),
     ("gemma2_2b", "attention", 4, 8, 4, 512, 512, 256, True, None),
 )
+#: the flash-attention shapes of the float32 consistency phase
+#: (``CONSISTENCY``: ``forward_full`` over s tokens, ``prefill`` over the
+#: first cut), each with the ``flash_attention`` launches of one run:
+#: (arch, what, b, hq, hkv, sq, skv, d, causal, columns of v that are not
+#: zero, launches). The first row is the headline of ``flash_attention`` in
+#: the ``kernels`` line. The run holds each arch's rows to the launches it
+#: counted by call shape and reports those (:func:`f32_row_launches`);
+#: ``tests/test_torch_flash_attention.py`` records both passes' calls on
+#: the meta device and holds them to this table.
+FLASH_F32_SHAPES = (
+    ("qwen2_0_5b", "prefill", 1, 14, 2, 512, 512, 64, True, None, 24),
+    ("qwen2_0_5b", "forward_full", 1, 14, 2, 544, 544, 64, True, None, 24),
+    ("olmoe_1b_7b", "prefill", 1, 16, 16, 512, 512, 128, True, None, 16),
+    ("olmoe_1b_7b", "forward_full", 1, 16, 16, 544, 544, 128, True, None,
+     16),
+    ("deepseek_v2_236b", "MLA prefill, v zero-padded 128 -> 192", 1, 128,
+     128, 512, 512, 192, True, 128, 2),
+    ("deepseek_v2_236b", "MLA forward_full, v zero-padded 128 -> 192", 1,
+     128, 128, 544, 544, 192, True, 128, 2),
+    ("zamba2_1_2b", "shared block, prefill", 1, 32, 32, 512, 512, 64, True,
+     None, 6),
+    ("zamba2_1_2b", "shared block, forward_full", 1, 32, 32, 576, 576, 64,
+     True, None, 6),
+    ("seamless_m4t_medium", "encoder self (both passes), prefill's cross", 1,
+     16, 16, 512, 512, 64, False, None, 36),
+    ("seamless_m4t_medium", "decoder self, prefill", 1, 16, 16, 512, 512,
+     64, True, None, 12),
+    ("seamless_m4t_medium", "decoder self, forward_full", 1, 16, 16, 544,
+     544, 64, True, None, 12),
+    ("seamless_m4t_medium", "forward_full's cross", 1, 16, 16, 544, 512, 64,
+     False, None, 12),
+)
 
 
-def _flash_work(q, k, v, causal) -> tuple:
+def _call_key(route, b, hq, hkv, sq, skv, d, causal) -> str:
+    """One flash-attention call shape, as a consistency row's
+    ``launches_by_shape`` names it."""
+    return (f"{route} q ({b}, {hq}, {sq}, {d}), k/v ({b}, {hkv}, {skv}, "
+            f"{d}), {'causal' if causal else 'non-causal'}")
+
+
+def f32_row_launches(by_arch) -> list:
+    """The ``flash_attention`` launches that the float32 consistency run
+    counted at each ``FLASH_F32_SHAPES`` row, read from each arch's
+    launches by call shape (``consistency``). Fails unless each arch's
+    ``flash_attention`` calls are exactly its rows' shapes and counts, and
+    add up to its ``flash_attention`` launch count."""
+    keys = [(arch, _call_key("flash_attention", *shape))
+            for arch, _, *shape, _, _ in FLASH_F32_SHAPES]
+    check(len(set(keys)) == len(keys), "FLASH_F32_SHAPES names a call "
+          "shape of one arch twice")
+    table = collections.defaultdict(dict)
+    for (arch, key), row in zip(keys, FLASH_F32_SHAPES):
+        table[arch][key] = row[-1]
+    check(set(table) <= set(by_arch), f"no consistency run of "
+          f"{sorted(set(table) - set(by_arch))}")
+    for arch, row in by_arch.items():
+        got = {key: n for key, n in row["launches_by_shape"].items()
+               if key.startswith("flash_attention ")}
+        check(got == table.get(arch, {}),
+              f"consistency {arch}: flash_attention launched {got} by call "
+              f"shape; FLASH_F32_SHAPES has {table.get(arch, {})}")
+        check(sum(got.values()) == row["launches"].get("flash_attention", 0),
+              f"consistency {arch}: {sum(got.values())} flash_attention "
+              f"launches by call shape, {row['launches']} in all")
+    return [by_arch[arch]["launches_by_shape"][key] for arch, key in keys]
+
+
+def _flash_work(q, k, v, causal, v_cols=None) -> tuple:
     """Bytes (q, k, v read once, o written once) and operations (QK^T and
-    PV over the pairs the mask keeps) of one attention call."""
+    PV over the pairs the mask keeps) of one attention call; with
+    ``v_cols``, PV over v's first ``v_cols`` columns only."""
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    return nbytes, 4 * b * hq * d * pairs
+    return nbytes, 2 * b * hq * pairs * (d + (v_cols or d))
+
+
+def _useful_bound(q, k, v, causal, v_cols, peak) -> dict:
+    """Where v is zero past column ``v_cols`` (MLA's pad), the bound of the
+    attention without the pad's PV products, beside ``bound_ms``, which
+    counts the call as made."""
+    if not v_cols:
+        return {}
+    nbytes, flops = _flash_work(q, k, v, causal, v_cols)
+    return dict(useful_flops=flops,
+                useful_bound_ms=_bound(nbytes, flops, peak)["bound_ms"])
+
+
+def _useful_text(r) -> str:
+    if "useful_bound_ms" not in r:
+        return ""
+    return (f"; without v's zero pad {r['ms'] / r['useful_bound_ms']:.3f} x "
+            f"its bound {r['useful_bound_ms']:.6f} ms ({r['useful_flops']} "
+            f"FLOP)")
 
 
 def _sdpa_name(causal) -> str:
@@ -2375,7 +2476,8 @@ def measure_flash_shapes(device) -> list:
             library_ms=turns[1], library_ms_turns=turns[1::2],
             library=_sdpa_name(causal),
             plain_ms=device_ms(plain, 5, device),
-            **_bound(*_flash_work(q, k, v, causal), BF16_FLOP_PER_S)))
+            **_bound(*_flash_work(q, k, v, causal), BF16_FLOP_PER_S),
+            **_useful_bound(q, k, v, causal, v_cols, BF16_FLOP_PER_S)))
         del q, k, v, got
     for r in rows:
         print(f"time {r['route']} at {r['arch']}'s {r['what']}, {r['shape']}:"
@@ -2385,20 +2487,23 @@ def measure_flash_shapes(device) -> list:
               f"plain {r['plain_ms']:.6f} ms (max abs err "
               f"{r['max_abs_err']}); SDPA {r['library_ms']:.6f} ms "
               f"(turns {r['library_ms_turns']}; kernel / SDPA "
-              f"{r['ms'] / r['library_ms']:.3f})")
+              f"{r['ms'] / r['library_ms']:.3f})" + _useful_text(r))
     return rows
 
 
-def measure_model_kernels(device, flash_shapes) -> dict:
+def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
     """Each model entry point at the shape its main path gives it: device
     time per launch, the plain version's, the library call's where one
     computes the same function (SDPA, GQA; WKV has none) and the bound, the
     larger of bytes over 3.35 TB/s and operations over the peak for their
     type (bf16: the tensor cores; float32: the CUDA cores, since no route
     uses TF32). ``flash_attention_mma`` is qwen2-0.5b's row of
-    ``flash_shapes`` (``measure_flash_shapes``). The one-CTA-a-head
-    ``wkv``, on no main-path run, at rwkv6-7b's heads over an 8-token
-    prompt (one chunk of 8)."""
+    ``flash_shapes`` (``measure_flash_shapes``); ``flash_attention`` is
+    timed at every ``FLASH_F32_SHAPES`` shape, each with the launches
+    that the consistency run ``by_arch`` counted there
+    (:func:`f32_row_launches`), and headed by its first. The
+    one-CTA-a-head ``wkv``, on no main-path run, at rwkv6-7b's heads over
+    an 8-token prompt (one chunk of 8)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(9)
     sdpa = F.scaled_dot_product_attention
@@ -2407,25 +2512,56 @@ def measure_model_kernels(device, flash_shapes) -> dict:
           f"qwen2's prefill shape ran {flash_shapes[0]['route']}")
     out = {"flash_attention_mma": flash_shapes[0]}
 
-    # flash_attention (CUDA cores) at qwen2's float32 consistency prefill
-    hq, hkv, d = 14, 2, 64
-    cs = CONSISTENCY_SIZE["cut"]
-    q, k, v = _flash_inputs(gen, device, 1, hq, hkv, cs, cs, d, "float32",
-                            1.5)
-    got, route = _route_of_call(lambda: flash_attention_cuda(q, k, v))
-    check(route == "flash_attention", f"float32 ran {route}")
-    _within(got, flash_attention_ref(q, k, v), 2e-5, 2e-5,
-            "flash_attention float32 vs plain")
-    out["flash_attention"] = dict(
-        shape=f"q (1, {hq}, {cs}, {d}) float32, k/v (1, {hkv}, {cs}, {d}), "
-              f"causal", route=route,
-        ms=device_ms(lambda: flash_attention_cuda(q, k, v), 50, device),
-        plain_ms=device_ms(lambda: flash_attention_ref(q, k, v), 10, device),
-        library_ms=device_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                          enable_gqa=True), 50, device),
-        library=_sdpa_name(True),
-        **_bound(*_flash_work(q, k, v, True), FP32_FLOP_PER_S))
-    del q, k, v, got
+    # flash_attention (CUDA cores) at every float32 shape of the consistency
+    # phase, in turns with the plain version and SDPA; qwen2's prefill heads
+    rows = []
+    for (arch, what, b, hq, hkv, sq, skv, d, causal, v_cols,
+         _), n in zip(FLASH_F32_SHAPES, f32_row_launches(by_arch)):
+        label = f"{arch} {what}"
+        q, k, v = _flash_inputs(gen, device, b, hq, hkv, sq, skv, d,
+                                "float32", 1.5)
+        if v_cols:
+            v[..., v_cols:] = 0
+        got, route = _route_of_call(lambda: flash_attention_cuda(
+            q, k, v, causal=causal))
+        check(route == "flash_attention", f"{label} float32 ran {route}")
+        if v_cols:
+            check(not got[..., v_cols:].any(), f"{label} float32: output "
+                  f"columns {v_cols}.. of zero v columns are not exactly 0")
+        kern = lambda: flash_attention_cuda(q, k, v,  # noqa: E731
+                                            causal=causal)
+        plain = lambda: flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal)
+        lib_call = lambda: sdpa(q, k, v, is_causal=causal,  # noqa: E731
+                                enable_gqa=True)
+        err = _within(got, plain(), 2e-5, 2e-5, f"{label} float32 vs plain")
+        turns = [device_ms(f, reps, device) for f, reps in (
+            (kern, 20), (lib_call, 20), (plain, 10), (plain, 10),
+            (lib_call, 20), (kern, 20))]
+        rows.append(dict(
+            arch=arch, what=what, route=route, launches=n,
+            shape=f"q ({b}, {hq}, {sq}, {d}) float32, k/v ({b}, {hkv}, "
+                  f"{skv}, {d}), {'causal' if causal else 'non-causal'}"
+                  + (f", v zero past column {v_cols}" if v_cols else ""),
+            max_abs_err=err, ms=turns[0], ms_turns=turns[0::5],
+            library_ms=turns[1], library_ms_turns=turns[1::3],
+            library=_sdpa_name(causal), plain_ms=turns[2],
+            plain_ms_turns=turns[2:4],
+            **_bound(*_flash_work(q, k, v, causal), FP32_FLOP_PER_S),
+            **_useful_bound(q, k, v, causal, v_cols, FP32_FLOP_PER_S)))
+        del q, k, v, got
+    for r in rows:
+        print(f"time flash_attention at {r['arch']}'s {r['what']} "
+              f"({r['launches']} launches in the consistency run), "
+              f"{r['shape']}: "
+              f"kernel {r['ms']:.6f} ms (turns {r['ms_turns']}), "
+              f"{r['ms'] / r['bound_ms']:.3f} x its bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {r['bytes']} B, "
+              f"{r['flops']} FLOP); plain {r['plain_ms_turns']} ms; SDPA "
+              f"{r['library_ms_turns']} ms; kernel / plain "
+              f"{r['ms'] / r['plain_ms']:.3f}, kernel / SDPA "
+              f"{r['ms'] / r['library_ms']:.3f}" + _useful_text(r))
+    out["flash_attention"] = dict(rows[0], by_shape=rows)
 
     # wkv_split at rwkv6-7b's prefill, on the model's head-transposed views
     b, h, s, dk, c = 4, 64, 512, 64, 16
@@ -2506,6 +2642,7 @@ def ptxas_phase() -> dict:
     for fn, rep in ptxas.items():
         print(f"ptxas {fn}: {rep}")
     by_entry = {"flash_attention_mma": "flash_mma_kernel",
+                "flash_attention": "flash_kernel",
                 "wkv_split": "wkv_split_kernel", **PTXAS_GATED}
     out = {entry: {fn: rep for fn, rep in ptxas.items()
                    if fn.startswith(kernel)}
@@ -3965,10 +4102,14 @@ def main(argv) -> int:
     consistent = [consistency(device, arch=arch,
                               **{**CONSISTENCY_SIZE, **settings})
                   for arch, settings in CONSISTENCY.items()]
+    by_arch = {row["arch"]: row for row in consistent}
     flash_shapes = measure_flash_shapes(device)
     for r in flash_shapes:
         errs[r["route"]] = max(errs[r["route"]], r["max_abs_err"])
-    model_times = measure_model_kernels(device, flash_shapes)
+    model_times = measure_model_kernels(device, flash_shapes, by_arch)
+    f32_rows = model_times["flash_attention"]["by_shape"]
+    errs["flash_attention"] = max([errs["flash_attention"]]
+                                  + [r["max_abs_err"] for r in f32_rows])
     ptxas = ptxas_phase()
     grads, training, recompute, elastic = train_phase()
     for route, rows in grads.items():
@@ -4030,7 +4171,6 @@ def main(argv) -> int:
     launches.update(elastic["launches"])
     launches.update(pipeline["launches"])
     qwen2, rwkv6 = serving["qwen2_0_5b"], serving["rwkv6_7b"]
-    by_arch = {row["arch"]: row for row in consistent}
     kernels = []
     model_runs = {"flash_attention_mma": dict(
                       serve=qwen2, train=_train_summary(
@@ -4049,7 +4189,8 @@ def main(argv) -> int:
                                     grad=grads["wkv_split"]),
                   "wkv": dict(main_path=False)}
     # the moe, MLA, hybrid and encoder-decoder runs of each flash route,
-    # and its times at their prefill shapes with the prefill's launches
+    # and its times at their shapes: the bf16 prefills' with the prefill's
+    # launches, and for flash_attention the float32 consistency's
     for name in ("flash_attention_mma", "flash_attention"):
         model_runs[name].update(
             serve_models={a: _run_summary(r) for a, r in serving.items()
@@ -4058,8 +4199,9 @@ def main(argv) -> int:
             consistency_models={a: r for a, r in by_arch.items()
                                 if name in r["launches"]
                                 and a != "qwen2_0_5b"},
-            by_shape=[_by_shape_row(r, name, serving)
-                      for r in flash_shapes if r["route"] == name])
+            by_shape=f32_rows if name == "flash_attention" else [
+                _by_shape_row(r, name, serving)
+                for r in flash_shapes if r["route"] == name])
     #: the batch or shape each lookup and gather entry point is reported at
     headline = {"race_lookup_tiled_byval": 512, "race_lookup_tiled": 4096,
                 "race_lookup_scalar_byval": 4096, "race_lookup_scalar": 4096,
@@ -4079,7 +4221,8 @@ def main(argv) -> int:
                          flops=r["flops"], **{
                              key: r[key] for key in (
                                  "ms_turns", "library_ms_turns",
-                                 "contiguous_ms", "ms_by_batch")
+                                 "plain_ms_turns", "contiguous_ms",
+                                 "ms_by_batch")
                              if key in r},
                          **model_runs[name])
         elif name in gather:

@@ -78,14 +78,67 @@
 // MLA shape it runs in ~0.6 of the two-stage time (an H100,
 // tools/flash_variants.py).
 //
-// flash_attention (float32, D <= 256): the CUDA-core route. Float32
-// inputs are multiplied in full float32 (no TF32): every product is a
-// float32 FMA (67 TFLOP/s peak). One CTA per (b*Hq + h, q tile); the Q
-// tile, one K and one V tile and the score tile live in shared memory as
-// float32 (rows padded by one float against bank conflicts); the
-// accumulator lives in registers, 128 threads each owning a (BQ/16) x
-// (DP/8) block of it; each warp runs the softmax of a quarter of the rows
-// with shuffles.
+// flash_attention (float32, D <= 256; D padded to 32/64/96/128/192/256):
+// the CUDA-core route. Float32 inputs are multiplied in full float32 (no
+// TF32): every product is a float32 FMA (67 TFLOP/s peak, 128 FMAs a clock
+// an SM).
+//
+// What bounds it on this card: FMAs, the shared memory that feeds them,
+// and the latency that eight warps an SM cannot hide. At the float32
+// shapes of the models (batch 1, S = 512-576, D = 64-192) the work is
+// 68-112 FLOP a byte, far above the CUDA cores' ridge (67 TFLOP/s over
+// 3.35 TB/s, 20 FLOP a byte): 0.47 GFLOP against 4.2 MB at qwen2-0.5b's
+// (1, 14, 512, 64), 14.6 GFLOP against 214 MB at deepseek-v2's MLA (1,
+// 128, 544, 192). An SM runs 128 FMAs a clock and its shared memory
+// delivers 32 words a clock, a word a lane, broadcast or not: a thread
+// has to do 4 FMAs for each word it reads, or shared memory sets the pace.
+// At qwen2's shape the grid is 112 CTAs, under one wave of 132 SMs, so the
+// last q tile's CTA sets the time: 8 kv tiles, 8.4 MFLOP, >= 16.5 us at
+// one SM's share of the peak. The design:
+// - Scores and softmax in registers. One CTA of eight warps per (b*Hq +
+//   h, 64-row q tile). Its threads form G groups (4 at DP <= 64, 2 at 96
+//   and 128, 1 at 192 and 256: as many as the registers allow), and group
+//   g takes every G-th visited kv tile, with its own K and V buffers, P
+//   tile, running max and sum and accumulator; the groups merge at the end
+//   (m = max m_g, l = sum l_g 2^(m_g - m), out = sum acc_g 2^(m_g - m) / l,
+//   in group order). A thread holds an RQ x CQ block of its group's 64 x
+//   64 scores (8 x 8, 8 x 4, 4 x 4) and the RQ x DP / KG block of the
+//   accumulator of the same rows; a row's KG threads are lanes of one
+//   warp, and its max and sum reduce across them with shuffles. p goes
+//   once to the group's P tile and is read back by the row's own warp; the
+//   accumulator stays in registers. A tile takes two barriers of the
+//   group's own threads (`bar.sync` by group), none of the whole CTA, so
+//   the groups run apart and fill each other's stalls. The softmax runs
+//   under branches uniform across the CTA (softcap, masks; a tile that no
+//   mask reaches skips the tests), in log2 units (scale * log2 e folded
+//   into one multiply; with a softcap, after the tanh), so exp(s - m) is
+//   one ex2.approx.
+// - Register-blocked products with 128-bit shared loads. Q, K and V stay
+//   row-major in shared memory, so that 16-byte cp.async fills them; a Q
+//   K^T step runs along d: RQ float4 of Q and CQ of K a thread for 4 RQ CQ
+//   FMAs, RQ CQ / (RQ + CQ) FMAs a word: 4 at G = 4, 2.67 at G = 2, 2 at G
+//   = 1. P.V reads RQ float4 of P and float4 (float2 at DP = 96) of V along
+//   its columns, RQ CP / (RQ + CP) FMAs a word for CP = DP / KG columns: 4
+//   at DP = 64 and 128, 3.4 at 96, 3 at 192, 3.2 at 256, 2.67 at 32. K
+//   rows are padded by 16 bytes, so that the eight K rows a quarter of a
+//   warp reads start in eight bank groups; a quarter of a warp reads one Q
+//   or P row (a broadcast) and 128 contiguous bytes of a V row; P's rows
+//   are padded too, and its 16-byte chunks XOR-swizzled by row group where
+//   a warp stores rows 8 apart (RQ = 8), so that they fall in different
+//   banks.
+// - cp.async K and V, 16-byte copies: one stage a group, G kv tiles in
+//   flight a CTA. A group copies V(kt) during its Q K^T of tile kt and
+//   K(kt + G) during its P.V, while the other groups compute. The bytes
+//   set the stages: Q + G (P + K + V) = 147,456 / 221,184 / 159,744 /
+//   200,704 / 165,888 / 215,040 B at DP = 32 / 64 / 96 / 128 / 192 / 256,
+//   one CTA an SM, at most the 227 KB a CTA may take; a second stage a
+//   group fits at none of them. A view whose rows are not 16-byte aligned
+//   (d % 4 != 0, odd strides) is copied by plain loads in the same kernel.
+// - The 64 x 64 tile at every DP, as on the tensor-core route: D = 192
+//   pads to 192, not 256, and a row whose visited keys are all masked
+//   averages the same keys on both routes (the groups' sums merge to it).
+// - A warp whose rows all lie past Sq (in the last, partial q tile) skips
+//   the products and the softmax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,11 +149,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kRowGroups = 16;  // threads along the rows of a tile
-constexpr int kColGroups = 8;   // threads along its columns
-constexpr int kWarps = kThreads / 32;
-
 struct Params {
   const void* q;
   const void* k;
@@ -114,235 +162,12 @@ struct Params {
   float scale, cap;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // The q tile of this CTA. Causal tiles run last tile first, so the CTAs
 // that visit the most kv tiles are launched first.
 __device__ __forceinline__ int q_tile(int causal) {
   return causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
                 : static_cast<int>(blockIdx.y);
 }
-
-template <int DP, int BQ, int BK>
-struct Tile {
-  static constexpr int QS = DP + 1;  // row stride of the Q and K tiles
-  static constexpr int SS = BK + 1;  // row stride of the score tile
-  static constexpr int floats =
-      BQ * QS + BK * QS + BK * DP + BQ * SS + 3 * BQ;
-  static constexpr size_t bytes = sizeof(float) * floats;
-};
-
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
-  using L = Tile<DP, BQ, BK>;
-  constexpr int QS = L::QS, SS = L::SS;
-  constexpr int RPT = BQ / kRowGroups;  // accumulator rows per thread
-  constexpr int SPT = BK / kColGroups;  // score columns per thread
-  constexpr int OPT = DP / kColGroups;  // accumulator columns per thread
-  constexpr int CPL = BK / 32;          // score columns per lane (softmax)
-  static_assert(BQ % kRowGroups == 0 && BK % 32 == 0 && DP % kColGroups == 0,
-                "tile shape");
-
-  extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x QS
-  float* Ks = Qs + BQ * QS;     // BK x QS
-  float* Vs = Ks + BK * QS;     // BK x DP
-  float* Ss = Vs + BK * DP;     // BQ x SS: scores, then p
-  float* m_s = Ss + BQ * SS;    // BQ running max
-  float* l_s = m_s + BQ;        // BQ running sum
-  float* c_s = l_s + BQ;        // BQ correction of this tile
-
-  const int tid = threadIdx.x;
-  const int tr = tid / kColGroups;
-  const int tc = tid % kColGroups;
-  const int warp = tid / 32, lane = tid % 32;
-
-  const int64_t bh = blockIdx.x;  // b * Hq + h
-  const int b = static_cast<int>(bh / p.hq);
-  const int h = static_cast<int>(bh % p.hq);
-  const int kvh = h / (p.hq / p.hkv);
-  const int q_start = q_tile(p.causal) * BQ;
-  const int qlo = p.q0 + q_start;  // position of the tile's first row
-
-  const auto* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const auto* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int i = tid; i < BQ * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP;
-    const int row = q_start + r;
-    Qs[r * QS + c] =
-        (row < p.sq && c < p.d) ? q[row * p.q_ss + c] : 0.f;
-  }
-  for (int r = tid; r < BQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  float acc[RPT][OPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) acc[i][j] = 0.f;
-
-  const int nk = (p.skv + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k_start = kt * BK;
-    // the whole-tile skip rule of _flash_kernel (uniform over the block)
-    if (p.causal && k_start > qlo + BQ - 1) break;
-    if (p.has_window && !(k_start + BK - 1 > qlo - p.window)) continue;
-
-    __syncthreads();  // the previous tile's K, V and p are consumed
-    for (int i = tid; i < BK * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP;
-      const int key = k_start + r;
-      const bool in = key < p.skv && c < p.d;
-      Ks[r * QS + c] = in ? k[key * p.k_ss + c] : 0.f;
-      Vs[r * DP + c] = in ? v[key * p.v_ss + c] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T: thread (tr, tc) owns rows tr + 16 i and columns tc + 8 j
-    float sc[RPT][SPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < DP; ++dd) {
-      float qa[RPT], kb[SPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qa[i] = Qs[(tr + kRowGroups * i) * QS + dd];
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) kb[j] = Ks[(tc + kColGroups * j) * QS + dd];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < SPT; ++j)
-        Ss[(tr + kRowGroups * i) * SS + tc + kColGroups * j] = sc[i][j];
-    __syncthreads();
-
-    // online softmax, one warp per row at a time
-    for (int r = warp; r < BQ; r += kWarps) {
-      const int qpos = qlo + r;
-      float sv[CPL];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int c = lane + 32 * j;
-        const int kpos = k_start + c;
-        float s;
-        if (kpos >= p.skv) {
-          s = -INFINITY;  // past the last key: not a key at all
-        } else {
-          s = Ss[r * SS + c] * p.scale;
-          if (p.has_cap) s = p.cap * tanhf(s / p.cap);
-          bool keep = true;
-          if (p.causal) keep = keep && kpos <= qpos;
-          if (p.has_window) keep = keep && kpos > qpos - p.window;
-          if (p.has_kv_len) keep = keep && kpos < p.kv_len;
-          if (!keep) s = kNegInf;
-        }
-        sv[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float corr = expf(m_prev - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const float e = expf(sv[j] - m_new);
-        sum += e;
-        Ss[r * SS + lane + 32 * j] = e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float corr = c_s[tr + kRowGroups * i];
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pa[RPT], vb[OPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pa[i] = Ss[(tr + kRowGroups * i) * SS + c];
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) vb[j] = Vs[c * DP + tc + kColGroups * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < OPT; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-  auto* o = static_cast<float*>(p.o) + bh * static_cast<int64_t>(p.sq) * p.d;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = tr + kRowGroups * i;
-    const int row = q_start + r;
-    if (row >= p.sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) {
-      const int c = tc + kColGroups * j;
-      if (c < p.d)
-        o[static_cast<int64_t>(row) * p.d + c] = acc[i][j] / l;
-    }
-  }
-}
-
-template <int DP, int BQ, int BK>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  using L = Tile<DP, BQ, BK>;
-  auto kernel = flash_kernel<DP, BQ, BK>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L::bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(batch) * p.hq),
-                  static_cast<unsigned>((p.sq + BQ - 1) / BQ));
-  kernel<<<grid, kThreads, L::bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch_f32(const Params& p, int batch, cudaStream_t stream) {
-  if (p.d <= 16) return launch<16, 64, 64>(p, batch, stream);
-  if (p.d <= 32) return launch<32, 64, 64>(p, batch, stream);
-  if (p.d <= 64) return launch<64, 64, 64>(p, batch, stream);
-  if (p.d <= 128) return launch<128, 64, 32>(p, batch, stream);
-  return launch<256, 32, 32>(p, batch, stream);
-}
-
 
 // ------------------------------------------------ tensor-core route (bf16)
 constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
@@ -732,6 +557,507 @@ int dispatch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------- CUDA-core route (float32)
+constexpr int kF32Threads = 256;  // eight warps
+constexpr int kF32BQ = 64;
+constexpr int kF32BK = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+// The shared memory one CTA may take (227 KiB of the SM's 228)
+constexpr size_t kSmemPerBlock = 227 * 1024;
+
+// The CUDA-core route's layout at one padded head dim. The CTA's threads
+// form G groups; group g takes the kv tiles kt_lo + g, kt_lo + g + G, ...
+// with its own K and V buffers, P tile, running max, sum and accumulator,
+// and the groups' results are merged at the end. Within a group, thread
+// (rg, kg) holds rows rg * RQ + (0..RQ-1) of the q tile: the scores of
+// keys kg + KG * i (i < CQ) and the output columns j * KG * VW + kg * VW +
+// (0..VW-1) (j < CP / VW) of those rows; a row's KG threads are lanes of
+// one warp. G is as large as the registers let it be (RQ x CQ scores and
+// RQ x CP accumulators a thread under 255 registers).
+template <int DP>
+struct F32Tile {
+  static constexpr int G = DP <= 64 ? 4 : (DP <= 128 ? 2 : 1);
+  static constexpr int TG = kF32Threads / G;  // threads a group
+  static constexpr int RQ = G == 1 ? 4 : 8;   // rows a thread
+  static constexpr int RG = kF32BQ / RQ;      // row groups
+  static constexpr int KG = TG / RG;          // threads a row
+  static constexpr int CQ = kF32BK / KG;      // keys a thread
+  static constexpr int CP = DP / KG;          // output columns a thread
+  static constexpr int VW = CP % 4 == 0 ? 4 : 2;  // their vector width
+  // Q K^T steps unrolled: one at G = 4, whose 8 x 8 scores and accumulator
+  // leave no registers for a second step's operands
+  static constexpr int QK_UNROLL = G == 4 ? 1 : 2;
+  // P's 16-byte chunks are XOR-swizzled by row group, so that the RQ-row
+  // apart rows a warp stores to fall in different banks
+  static constexpr int SW = RQ == 8 ? KG / 4 : 0;
+  // floats: row strides (K padded by 16 bytes, so that the eight K rows a
+  // quarter of a warp reads start in eight bank groups; a quarter of a warp
+  // reads one Q row, which needs no pad) and tiles
+  static constexpr int QS = DP;
+  static constexpr int KS = DP + 4;
+  static constexpr int VS = DP;
+  static constexpr int PS = kF32BK + 4;
+  static constexpr int q_floats = kF32BQ * QS;
+  static constexpr int p_floats = kF32BQ * PS;
+  static constexpr int k_floats = kF32BK * KS;
+  static constexpr int v_floats = kF32BK * VS;
+  static constexpr size_t bytes =
+      sizeof(float) * (q_floats + G * (p_floats + k_floats + v_floats));
+  static_assert(DP % 32 == 0 && DP <= 256, "DP: a multiple of 32, <= 256");
+  static_assert(RG * KG == TG && CQ * KG == kF32BK && CP * KG == DP &&
+                    32 % KG == 0 && CP % VW == 0,
+                "thread layout");
+  static_assert(bytes <= kSmemPerBlock, "the tiles must fit a CTA");
+  // the merge (G > 1): G scaled accumulators over the K/V buffers, the
+  // groups' maxima and sums over the P tiles
+  static_assert(G == 1 || (kF32BQ * DP <= k_floats + v_floats &&
+                           2 * G * kF32BQ + kF32BQ <= G * p_floats),
+                "merge buffers");
+};
+
+// Rows [row0, row0 + 64) of a (rows, d) float32 matrix with row stride
+// `ss` into a DP-wide shared tile of row stride RS, by NT threads (t their
+// index); rows >= `rows` and columns >= d are zero. vec: d, the strides and
+// the base are 16-byte multiples, so the copy is asynchronous (cp.async,
+// to be waited for); otherwise it is made by plain loads and stores.
+template <int DP, int RS, int NT>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              int64_t ss, int row0, int rows,
+                                              int d, bool vec, int t) {
+  if (vec) {
+    // thread t copies chunk t % CW of rows t / CW + RI * it: one base
+    // address a thread, whole rows an iteration (CW, the chunks a row
+    // rounded up to a power of two, so that it divides NT)
+    constexpr int CPR = DP / 4;  // 16-byte chunks a row
+    constexpr int CW = CPR <= 8 ? 8 : (CPR <= 16 ? 16 : (CPR <= 32 ? 32 : 64));
+    constexpr int RI = NT / CW;  // rows an iteration
+    static_assert(NT % CW == 0 && kF32BK % RI == 0, "whole rows");
+    const int c = (t % CW) * 4;
+    if (c >= DP) return;
+    const int r0 = t / CW;
+    const bool col_in = c < d;
+#pragma unroll
+    for (int it = 0; it < kF32BK / RI; ++it) {
+      const int r = r0 + it * RI;
+      const int row = row0 + r;
+      const bool in = col_in && row < rows;
+      cp_async16(smem_addr(dst + r * RS + c), in ? src + row * ss + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = t; i < kF32BK * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
+      const int row = row0 + r;
+      dst[r * RS + c] = (row < rows && c < d) ? src[row * ss + c] : 0.f;
+    }
+  }
+}
+
+// The kv tiles [lo, hi) that the 64-row q tile whose first row sits at
+// position qlo visits (of nk): _flash_kernel's whole-tile skip rule
+// (causal: k_start > qlo + BQ - 1; window: k_start + BK - 1 <= qlo -
+// window) leaves one contiguous range
+__device__ __forceinline__ void visited_range(const Params& p, int qlo,
+                                              int nk, int& lo, int& hi) {
+  lo = 0, hi = nk;
+  if (p.causal) {
+    const int64_t last = static_cast<int64_t>(qlo) + kF32BQ - 1;
+    const int64_t end = last / kF32BK + 1;
+    hi = last < 0 ? 0 : static_cast<int>(end < nk ? end : nk);
+  }
+  if (p.has_window) {
+    const int64_t edge = static_cast<int64_t>(qlo) - p.window - kF32BK + 1;
+    const int64_t first = edge / kF32BK + 1;
+    lo = edge < 0 ? 0 : static_cast<int>(first < nk ? first : nk);
+  }
+}
+
+// barrier `id` of the n threads of one group
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+template <int N>  // over lanes ^1, ^2, ... ^(N/2)
+__device__ __forceinline__ float shfl_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < N; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+// 2^x by the SFU (ex2.approx.ftz: a relative error under 2^-22, results
+// below 2^-126 flushed to 0; 0 at -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+template <int VW>  // VW floats from shared memory, 8 or 16 bytes aligned
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x, out[1] = v.y;
+  }
+}
+
+// Scale, softcap and masks of the thread's RQ x CQ scores s of kv tile kt
+// (rows row0 + e of the q tile whose first row sits at position qlo; keys
+// kg + KG i), then the online softmax of each row across its KG threads:
+// m_run, l_part and acc corrected, and p = exp(s - m) written to the P tile
+// Pt (row stride PS, 16-byte chunks XOR-swizzled by sw).
+template <int RQ, int CQ, int KG, int CP, int PS>
+__device__ __forceinline__ void softmax_tile(
+    const Params& p, float (&s)[RQ][CQ], float (&m_run)[RQ],
+    float (&l_part)[RQ], float (&acc)[RQ][CP], float* Pt, int kt, int qlo,
+    int row0, int kg, int sw, float scale2) {
+  // scale, softcap, masks, in log2 units (exp(x) = exp2(x log2 e)), each
+  // under a branch that is uniform across the CTA; a tile that no mask
+  // and no key past Skv reaches skips the tests. Then the online softmax
+  // of each row across its KG threads, all RQ rows' shuffles interleaved.
+  if (p.has_cap) {
+#pragma unroll
+    for (int e = 0; e < RQ; ++e)
+#pragma unroll
+      for (int i = 0; i < CQ; ++i) {
+        const float x = s[e][i] * p.scale;
+        s[e][i] = p.cap * tanhf(x / p.cap) * kLog2e;
+      }
+  } else {
+#pragma unroll
+    for (int e = 0; e < RQ; ++e)
+#pragma unroll
+      for (int i = 0; i < CQ; ++i) s[e][i] *= scale2;
+  }
+  const int k_start = kt * kF32BK;
+  const int k_last = k_start + kF32BK - 1;
+  if (k_last >= p.skv || (p.causal && k_last > qlo) ||
+      (p.has_window && k_start <= qlo + kF32BQ - 1 - p.window) ||
+      (p.has_kv_len && k_last >= p.kv_len)) {
+#pragma unroll
+    for (int e = 0; e < RQ; ++e)
+#pragma unroll
+      for (int i = 0; i < CQ; ++i) {
+        const int kpos = k_start + kg + KG * i;
+        const int qpos = qlo + row0 + e;
+        bool keep = true;
+        if (p.causal) keep = keep && kpos <= qpos;
+        if (p.has_window) keep = keep && kpos > qpos - p.window;
+        if (p.has_kv_len) keep = keep && kpos < p.kv_len;
+        if (!keep) s[e][i] = kNegInf;
+        if (kpos >= p.skv) s[e][i] = -INFINITY;  // past the last key
+      }
+  }
+  float mx[RQ];
+#pragma unroll
+  for (int e = 0; e < RQ; ++e) {
+    mx[e] = s[e][0];
+#pragma unroll
+    for (int i = 1; i < CQ; ++i) mx[e] = fmaxf(mx[e], s[e][i]);
+  }
+#pragma unroll
+  for (int o = 1; o < KG; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < RQ; ++e)
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+#pragma unroll
+  for (int e = 0; e < RQ; ++e) {
+    const float m_new = fmaxf(m_run[e], mx[e]);
+    const float corr = ex2(m_run[e] - m_new);
+    m_run[e] = m_new;
+    l_part[e] *= corr;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) acc[e][c] *= corr;
+    // p = exp(s - m) to the P tile, read back by the row's warp
+    float* const prow = Pt + (row0 + e) * PS;
+#pragma unroll
+    for (int i = 0; i < CQ; ++i) {
+      const float pe = ex2(s[e][i] - m_new);
+      l_part[e] += pe;
+      const int key = kg + KG * i;
+      prow[(((key / 4) ^ sw) * 4) + key % 4] = pe;
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_kernel(Params p, int vec) {
+  using L = F32Tile<DP>;
+  constexpr int G = L::G, TG = L::TG, RQ = L::RQ, KG = L::KG, CQ = L::CQ;
+  constexpr int CP = L::CP, VW = L::VW;
+  constexpr int QS = L::QS, KS = L::KS, VS = L::VS, PS = L::PS;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const Qs = reinterpret_cast<float*>(smem_raw);
+  float* const Ps = Qs + L::q_floats;          // G P tiles
+  float* const kv0 = Ps + G * L::p_floats;     // G (K, V) pairs
+
+  const int tid = threadIdx.x;
+  const int g = tid / TG, t = tid % TG;
+  const int rg = t / KG, kg = t % KG;
+  const int row0 = rg * RQ;
+  const int sw = (rg % (32 / KG)) * L::SW;  // P's chunk swizzle, these rows
+  float* const Pg = Ps + g * L::p_floats;
+  float* const Kg = kv0 + g * (L::k_floats + L::v_floats);
+  float* const Vg = Kg + L::k_floats;
+
+  const int64_t bh = blockIdx.x;  // b * Hq + h
+  const int b = static_cast<int>(bh / p.hq);
+  const int h = static_cast<int>(bh % p.hq);
+  const int kvh = h / (p.hq / p.hkv);
+  const int q_start = q_tile(p.causal) * kF32BQ;
+  const int qlo = p.q0 + q_start;  // position of the tile's first row
+
+  const auto* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const auto* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const auto* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // the kv tiles this q tile visits
+  const int nk = (p.skv + kF32BK - 1) / kF32BK;
+  int kt_lo, kt_hi;
+  visited_range(p, qlo, nk, kt_lo, kt_hi);
+
+  // Copies: Q by the whole CTA, with each group's first K tile. Then, in
+  // each of its tiles, a group copies V(kt) after the tile's first barrier
+  // (once it is done with V(kt - G)), which overlaps Q K^T, and K(kt + G)
+  // after the second (once it is done with K(kt)), which overlaps P.V.
+  const bool vec_load = vec != 0;
+  load_tile_f32<DP, QS, kF32Threads>(Qs, q, p.q_ss, q_start, p.sq, p.d,
+                                     vec_load, tid);
+  const int kt0 = kt_lo + g;
+  if (kt0 < kt_hi)
+    load_tile_f32<DP, KS, TG>(Kg, k, p.k_ss, kt0 * kF32BK, p.skv, p.d,
+                              vec_load, t);
+  cp_async_commit();
+
+  float acc[RQ][CP];
+#pragma unroll
+  for (int e = 0; e < RQ; ++e)
+#pragma unroll
+    for (int c = 0; c < CP; ++c) acc[e][c] = 0.f;
+  // this thread's rows: the running max (in log2 units) and this thread's
+  // part of the running sum (the row's KG parts are added at the end)
+  float m_run[RQ], l_part[RQ];
+#pragma unroll
+  for (int e = 0; e < RQ; ++e) m_run[e] = kNegInf, l_part[e] = 0.f;
+  const float scale2 = p.scale * kLog2e;
+  // a warp whose rows all lie past Sq (the last q tile's) skips the products
+  // and the softmax: its rows are not written
+  const bool live = __any_sync(0xffffffffu, q_start + row0 < p.sq);
+
+  cp_async_wait<0>();
+  __syncthreads();  // Q and each group's first K tile are in place
+  for (int kt = kt0; kt < kt_hi; kt += G) {
+    if (kt != kt0) {
+      cp_async_wait<0>();
+      group_sync(1 + g, TG);  // K(kt); the group is done with V(kt - G), P
+    }
+    load_tile_f32<DP, VS, TG>(Vg, v, p.v_ss, kt * kF32BK, p.skv, p.d,
+                              vec_load, t);
+    cp_async_commit();
+
+    if (live) {
+      // S = Q K^T for this thread's RQ rows and CQ keys, in registers: each
+      // step of four d reads RQ float4 of Q and CQ of K for 4 RQ CQ FMAs
+      float s[RQ][CQ];
+#pragma unroll
+      for (int e = 0; e < RQ; ++e)
+#pragma unroll
+        for (int i = 0; i < CQ; ++i) s[e][i] = 0.f;
+#pragma unroll (L::QK_UNROLL)
+      for (int dd = 0; dd < DP; dd += 4) {
+        float4 qa[RQ];
+#pragma unroll
+        for (int e = 0; e < RQ; ++e)
+          qa[e] = *reinterpret_cast<const float4*>(Qs + (row0 + e) * QS + dd);
+#pragma unroll
+        for (int i = 0; i < CQ; ++i) {
+          const float4 kb =
+              *reinterpret_cast<const float4*>(Kg + (kg + KG * i) * KS + dd);
+#pragma unroll
+          for (int e = 0; e < RQ; ++e) {
+            s[e][i] = fmaf(qa[e].x, kb.x, s[e][i]);
+            s[e][i] = fmaf(qa[e].y, kb.y, s[e][i]);
+            s[e][i] = fmaf(qa[e].z, kb.z, s[e][i]);
+            s[e][i] = fmaf(qa[e].w, kb.w, s[e][i]);
+          }
+        }
+      }
+
+      softmax_tile<RQ, CQ, KG, CP, PS>(p, s, m_run, l_part, acc, Pg, kt, qlo,
+                                       row0, kg, sw, scale2);
+    }
+
+    cp_async_wait<0>();
+    group_sync(1 + g, TG);  // V(kt) and P; the group is done with K(kt)
+    if (kt + G < kt_hi)
+      load_tile_f32<DP, KS, TG>(Kg, k, p.k_ss, (kt + G) * kF32BK, p.skv,
+                                p.d, vec_load, t);
+    cp_async_commit();
+
+    if (live) {
+      // acc += P V: each step of four keys reads RQ float4 of P and 4 CP / VW
+      // vectors of V for 4 RQ CP FMAs
+#pragma unroll 2
+      for (int c0 = 0; c0 < kF32BK; c0 += 4) {
+        float4 pa[RQ];
+#pragma unroll
+        for (int e = 0; e < RQ; ++e)
+          pa[e] = *reinterpret_cast<const float4*>(
+              Pg + (row0 + e) * PS + (((c0 / 4) ^ sw) * 4));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* const vrow = Vg + (c0 + kk) * VS + kg * VW;
+#pragma unroll
+          for (int j = 0; j < CP / VW; ++j) {
+            float vb[VW];
+            load_vec<VW>(vrow + j * KG * VW, vb);
+#pragma unroll
+            for (int e = 0; e < RQ; ++e) {
+              const float pk = f4_at(pa[e], kk);
+#pragma unroll
+              for (int u = 0; u < VW; ++u)
+                acc[e][j * VW + u] = fmaf(pk, vb[u], acc[e][j * VW + u]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  auto* o = static_cast<float*>(p.o) + bh * static_cast<int64_t>(p.sq) * p.d;
+  const bool quads = (p.d % 4) == 0;
+  // one group writes from its registers: the merge below gives the same
+  // bits at G = 1 (f = 1, one buffer) but took 1.2% longer at MLA's
+  // (1, 128, 512, 192) on an H100 (tools/flash_variants.py)
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int e = 0; e < RQ; ++e) {
+      const float inv = 1.f / fmaxf(shfl_sum<KG>(l_part[e]), 1e-30f);
+      const int row = q_start + row0 + e;
+      if (row >= p.sq) continue;
+      float* const orow = o + static_cast<int64_t>(row) * p.d;
+#pragma unroll
+      for (int j = 0; j < CP / VW; ++j) {
+        const int c = j * KG * VW + kg * VW;
+        if (VW == 4 && quads && c < p.d) {
+          *reinterpret_cast<float4*>(orow + c) = make_float4(
+              acc[e][j * 4] * inv, acc[e][j * 4 + 1] * inv,
+              acc[e][j * 4 + 2] * inv, acc[e][j * 4 + 3] * inv);
+        } else {
+#pragma unroll
+          for (int u = 0; u < VW; ++u)
+            if (c + u < p.d) orow[c + u] = acc[e][j * VW + u] * inv;
+        }
+      }
+    }
+  } else {
+    // merge the groups: m = max m_g, L = sum l_g 2^(m_g - m), out =
+    // (sum acc_g 2^(m_g - m)) / max(L, 1e-30), summed in group order (the
+    // division as a product with 1 / max(L, 1e-30))
+    __syncthreads();  // every group is done with its K, V and P
+    float* const ms = Ps;               // G x 64 maxima
+    float* const ls = ms + G * kF32BQ;  // G x 64 sums
+    float* const Ls = ls + G * kF32BQ;  // 64 merged 1 / max(L, 1e-30)
+#pragma unroll
+    for (int e = 0; e < RQ; ++e) {
+      const float l = shfl_sum<KG>(l_part[e]);
+      if (kg == 0) {
+        ms[g * kF32BQ + row0 + e] = m_run[e];
+        ls[g * kF32BQ + row0 + e] = l;
+      }
+    }
+    __syncthreads();
+    float* const buf = kv0 + g * kF32BQ * DP;  // this group's scaled acc
+#pragma unroll
+    for (int e = 0; e < RQ; ++e) {
+      const int r = row0 + e;
+      float m = ms[r];
+#pragma unroll
+      for (int g2 = 1; g2 < G; ++g2) m = fmaxf(m, ms[g2 * kF32BQ + r]);
+      if (g == 0 && kg == 0) {
+        float sum = 0.f;
+#pragma unroll
+        for (int g2 = 0; g2 < G; ++g2)
+          sum += ls[g2 * kF32BQ + r] * ex2(ms[g2 * kF32BQ + r] - m);
+        Ls[r] = 1.f / fmaxf(sum, 1e-30f);
+      }
+      const float f = ex2(m_run[e] - m);
+#pragma unroll
+      for (int j = 0; j < CP / VW; ++j) {
+        float* const dst = buf + r * DP + j * KG * VW + kg * VW;
+        if constexpr (VW == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              acc[e][j * 4] * f, acc[e][j * 4 + 1] * f,
+              acc[e][j * 4 + 2] * f, acc[e][j * 4 + 3] * f);
+        } else {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[e][j * 2] * f, acc[e][j * 2 + 1] * f);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kF32BQ * DP / 4; i += kF32Threads) {
+      const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+      const int row = q_start + r;
+      if (row >= p.sq || c >= p.d) continue;
+      float4 x = *reinterpret_cast<const float4*>(kv0 + r * DP + c);
+#pragma unroll
+      for (int g2 = 1; g2 < G; ++g2) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            kv0 + g2 * kF32BQ * DP + r * DP + c);
+        x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+      }
+      const float inv = Ls[r];
+      x = make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
+      float* const orow = o + static_cast<int64_t>(row) * p.d;
+      if (quads) {
+        *reinterpret_cast<float4*>(orow + c) = x;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c + u < p.d) orow[c + u] = f4_at(x, u);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_f32(const Params& p, int batch, int vec, cudaStream_t stream) {
+  using L = F32Tile<DP>;
+  auto kernel = flash_kernel<DP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(batch) * p.hq),
+                  static_cast<unsigned>((p.sq + kF32BQ - 1) / kF32BQ));
+  kernel<<<grid, kF32Threads, L::bytes, stream>>>(p, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_f32(const Params& p, int batch, int vec, cudaStream_t stream) {
+  if (p.d <= 32) return launch_f32<32>(p, batch, vec, stream);
+  if (p.d <= 64) return launch_f32<64>(p, batch, vec, stream);
+  if (p.d <= 96) return launch_f32<96>(p, batch, vec, stream);
+  if (p.d <= 128) return launch_f32<128>(p, batch, vec, stream);
+  if (p.d <= 192) return launch_f32<192>(p, batch, vec, stream);
+  if (p.d <= 256) return launch_f32<256>(p, batch, vec, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // C interface (bound with ctypes), one entry point a route. Each launches
@@ -769,7 +1095,16 @@ int flash_attention(FLASH_ARGS) {
                    has_window, window, has_cap, cap, has_kv_len, kv_len, q0,
                    scale, stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_f32(p, batch, static_cast<cudaStream_t>(stream));
+  // 16-byte rows and bases: the asynchronous copy; else plain loads
+  const int64_t strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                             v_sb, v_sh, v_ss};
+  bool vec = d % 4 == 0;
+  for (int64_t st : strides) vec = vec && st % 4 == 0;
+  const void* bases[] = {q, k, v};
+  for (const void* ptr : bases)
+    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  return dispatch_f32(p, batch, vec ? 1 : 0,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // the tensor-core route: bfloat16, D <= 256

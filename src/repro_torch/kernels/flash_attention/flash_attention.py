@@ -22,6 +22,7 @@ falls back from one to the other:
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -37,10 +38,14 @@ ROUTES = ("flash_attention_mma", "flash_attention")
 _SIGNATURES = {route: _ARGS for route in ROUTES}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-#: BQ = BK of the tensor-core route: a row whose visited keys are all
-#: masked averages the keys of the tiles it visits
+#: BQ = BK of both routes, at every head dim: a row whose visited keys are
+#: all masked averages the keys of the tiles it visits
 MMA_TILE = 64
 _INT_MAX = 2 ** 31 - 1
+#: launches by call shape, (route, b, hq, hkv, sq, skv, d, causal), counted
+#: beside ``_build.launches`` once the launch was accepted; callers clear it
+#: before the run whose calls they read
+launches_by_shape: collections.Counter = collections.Counter()
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -104,4 +109,5 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, cap=None,
             *v.stride()[:3], b, hq, hkv, sq, skv, d, DTYPES[q.dtype],
             int(bool(causal)), *_opt(window), *_opt(cap), *_opt(kv_len),
             q0, 1.0 / math.sqrt(d), stream)
+    launches_by_shape[(route, b, hq, hkv, sq, skv, d, bool(causal))] += 1
     return out

@@ -25,7 +25,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.models.attention import dense_attention as jax_dense
 from repro_torch.kernels.flash_attention.flash_attention import (
-    ROUTES, flash_route)
+    MMA_TILE, ROUTES, flash_route)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention import attention, dense_attention
@@ -131,6 +131,26 @@ def test_ragged_lengths_match_dense_attention(sq, skv, causal, window, cap,
            want, dtype)
 
 
+@pytest.mark.parametrize("d", [64, 192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_pallas_rows_with_all_visited_keys_masked_average_their_tiles(causal,
+                                                                     d):
+    """kv_len = 0 masks every key. The Pallas kernel at 64 x 64 blocks then
+    averages, in each row, the keys of the kv tiles it visits (all of them
+    without causality; up to its q tile's diagonal with it): the value
+    ``tests/test_torch_gpu.py`` holds both CUDA routes to at every head
+    dim, since both keep the 64 x 64 tile."""
+    (jq, jk, jv), _ = _inputs(1, 2, 1, 256, d, "float32", seed=7)
+    got = np.asarray(flash_attention_pallas(jq, jk, jv, causal=causal,
+                                            bq=64, bk=64, kv_len=0))
+    vf = np.asarray(jv)[0, 0]
+    for row in (0, 63, 64, 150, 255):
+        last = 256 if not causal else (row // MMA_TILE + 1) * MMA_TILE
+        np.testing.assert_allclose(got[0, :, row],
+                                   np.broadcast_to(vf[:last].mean(0), (2, d)),
+                                   atol=2e-5, rtol=2e-5)
+
+
 def test_model_attention_takes_the_plain_version_on_the_cpu():
     cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=64, vocab=16)
@@ -194,27 +214,50 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi64ELi6
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 2048 bytes smem, 480 bytes cmem[0]
 """
+#: the same log's lines for the CUDA-core kernel's instances, one a padded
+#: head dim (DP = 192 with 8 bytes spilled)
+F32_LOG = "".join(f"""\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelILi{dp}EEEvNS_6ParamsEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi{dp}EEEvNS_6ParamsEi
+    {8 * (dp == 192)} bytes stack frame, {8 * (dp == 192)} bytes spill stores, {8 * (dp == 192)} bytes spill loads
+ptxas info    : Used {64 + dp // 2} registers, used 1 barriers, 480 bytes cmem[0]
+""" for dp in (32, 64, 96, 128, 192, 256))
 
 
 def test_ptxas_report_reads_each_instance_of_the_named_kernels():
     """``chip_smoke.ptxas_report`` parses the text of a build log: one entry
     an instance of the kernels it is asked for, by the name its gate uses,
-    and nothing of the others."""
+    and nothing of the others. The CUDA-core kernel (``flash_kernel``) is
+    among the kernels it reads by default, and each of its instances is
+    gated: a spill in one of them is read as such."""
     smoke = _smoke()
-    rep = smoke.ptxas_report(PTXAS_LOG)
+    rep = smoke.ptxas_report(PTXAS_LOG + F32_LOG)
+    f32 = {f"flash_kernelILi{dp}E": dict(
+        stack_bytes=8 * (dp == 192), spill_store_bytes=8 * (dp == 192),
+        spill_load_bytes=8 * (dp == 192), registers=64 + dp // 2,
+        static_smem_bytes=0) for dp in smoke.FLASH_F32_DPS}
     assert rep == {
         "flash_mma_kernelILi192E": dict(
             stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
             registers=239, static_smem_bytes=0),
         "flash_mma_kernelILi96E": dict(
             stack_bytes=24, spill_store_bytes=24, spill_load_bytes=24,
-            registers=168, static_smem_bytes=0)}
-    assert set(smoke.PTXAS_GATED_INSTANCES) <= set(rep)
-    both = smoke.ptxas_report(PTXAS_LOG, ("flash_mma_kernel", "flash_kernel"))
-    assert both["flash_kernelILi64ELi64ELi64E"] == dict(
-        stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
-        registers=128, static_smem_bytes=2048)
-    assert len(both) == 3
+            registers=168, static_smem_bytes=0),
+        # an earlier source's instance, as tools/flash_variants.py reads a
+        # parent's build log
+        "flash_kernelILi64ELi64ELi64E": dict(
+            stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+            registers=128, static_smem_bytes=2048),
+        **f32}
+    assert set(smoke.PTXAS_GATED_INSTANCES) == {"flash_mma_kernelILi192E",
+                                                *f32}
+    assert "flash_kernel" in smoke.PTXAS_KERNELS
+    gated = {fn: rep[fn] for fn in smoke.PTXAS_GATED_INSTANCES}
+    assert [fn for fn, r in gated.items() if r["spill_store_bytes"]] == [
+        "flash_kernelILi192E"]
+    assert set(smoke.ptxas_report(PTXAS_LOG + F32_LOG, (
+        "flash_mma_kernel",))) == {"flash_mma_kernelILi192E",
+                                   "flash_mma_kernelILi96E"}
 
 
 def test_kernels_line_counts_launches_only_of_served_models():
@@ -233,3 +276,119 @@ def test_kernels_line_counts_launches_only_of_served_models():
     assert smoke._by_shape_row(gemma, "flash_attention_mma", served) == dict(
         gemma, served=False, launches_a_prefill=None)
     assert any(r[0] == "gemma2_2b" for r in smoke.FLASH_MODEL_SHAPES)
+
+
+def test_float32_timing_shapes_are_the_consistency_phase_calls(monkeypatch):
+    """``chip_smoke.FLASH_F32_SHAPES`` times the CUDA-core route at every
+    attention call of the float32 consistency phase, with its launches:
+    each arch of ``CONSISTENCY`` whose route is ``flash_attention`` runs
+    ``forward_full`` over s tokens and ``prefill`` over the first cut on the
+    meta device, at full width and the phase's depth, and its calls, by
+    shape and count, are the table's rows of that arch."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import forward_full, init_params, prefill
+
+    smoke = _smoke()
+    calls = collections.Counter()
+    plain = flash_ops.flash_attention
+
+    def record(q, k, v, *, causal=True, **kw):
+        assert not any(kw.values()), kw            # no window, cap, q0
+        assert v.shape == k.shape
+        calls[(*q.shape[:3], *k.shape[1:], causal)] += 1
+        return plain(q, k, v, causal=causal, **kw)
+
+    monkeypatch.setattr(flash_ops, "flash_attention", record)
+    table = collections.defaultdict(collections.Counter)
+    for (arch, _, b, hq, hkv, sq, skv, d, causal, _,
+         n) in smoke.FLASH_F32_SHAPES:
+        table[arch][(b, hq, sq, hkv, skv, d, causal)] += n
+    archs = [a for a, st in smoke.CONSISTENCY.items()
+             if st["route"] == "flash_attention"]
+    assert sorted(table) == sorted(archs)
+    for arch in archs:
+        settings = smoke.CONSISTENCY[arch]
+        size = {**smoke.CONSISTENCY_SIZE, **settings}
+        cfg, _ = smoke._cut(get_config(arch), settings.get("n_layers"))
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = init_params(cfg, None, "meta")
+        tokens = torch.zeros((1, size["s"]), dtype=torch.int32,
+                             device="meta")
+        batch = {"tokens": tokens}
+        key = "tokens"
+        if cfg.family == "encdec":
+            key = "dec_tokens"
+            batch = {"frames": torch.zeros((1, size["cut"], cfg.d_model),
+                                           device="meta"), key: tokens}
+        calls.clear()
+        forward_full(cfg, params, batch)
+        prefill(cfg, params, dict(batch, **{key: tokens[:, :size["cut"]]}),
+                size["s"])
+        assert sum(calls.values()) == 2 * smoke.attn_calls(cfg)
+        assert calls == table[arch], arch
+    assert sum(sum(c.values()) for c in table.values()) == 168
+
+
+def test_float32_row_launches_are_read_by_arch_and_call_shape():
+    """``chip_smoke.f32_row_launches`` reports each ``FLASH_F32_SHAPES`` row
+    with the launches the consistency run counted at its arch and call
+    shape, and fails where the run's split differs from the table's, even
+    with the total the same: between two archs, between two shapes of one
+    arch, or against an arch's launch count."""
+    import copy
+
+    smoke = _smoke()
+    by_arch = {}
+    for arch, _, *shape, _, n in smoke.FLASH_F32_SHAPES:
+        row = by_arch.setdefault(arch, dict(
+            launches={"flash_attention": 0}, launches_by_shape={}))
+        row["launches"]["flash_attention"] += n
+        row["launches_by_shape"][smoke._call_key("flash_attention",
+                                                 *shape)] = n
+    by_arch["rwkv6_7b"] = dict(launches={"wkv_split": 64},
+                               launches_by_shape={})
+    assert smoke.f32_row_launches(by_arch) == [
+        r[-1] for r in smoke.FLASH_F32_SHAPES]
+
+    def moved(src, dst):
+        bad = copy.deepcopy(by_arch)
+        for (arch, i), step in ((src, -1), (dst, 1)):
+            row = bad[arch]
+            key = list(row["launches_by_shape"])[i]
+            row["launches_by_shape"][key] += step
+            row["launches"]["flash_attention"] += step
+        return bad
+
+    for bad in (moved(("qwen2_0_5b", 0), ("seamless_m4t_medium", 0)),
+                moved(("seamless_m4t_medium", 0),
+                      ("seamless_m4t_medium", 1))):
+        assert sum(r["launches"].get("flash_attention", 0)
+                   for r in bad.values()) == 168
+        with pytest.raises(smoke.PhaseError, match="by call shape"):
+            smoke.f32_row_launches(bad)
+    bad = copy.deepcopy(by_arch)
+    bad["olmoe_1b_7b"]["launches"]["flash_attention"] += 1
+    with pytest.raises(smoke.PhaseError, match="in all"):
+        smoke.f32_row_launches(bad)
+
+
+def test_flash_variants_finds_every_instance_of_both_routes():
+    """``tools/flash_variants.py`` reads the instances of each route from
+    the source it builds, for its occupancy report."""
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "flash_variants", root / "tools" / "flash_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src/repro_torch/kernels/flash_attention/csrc/"
+           "flash_attention.cu").read_text()
+    mma, f32 = tool._instances(src)
+    assert sorted(mma) == sorted(f32) == list(_smoke().FLASH_F32_DPS)
+    assert all("F32Tile" in line and line.endswith("kF32Threads);")
+               for line in f32.values())
+    assert {row[0] for row in tool.SHAPES["float32"]} == {
+        f"{r[0]} {r[1]}" for r in _smoke().FLASH_F32_SHAPES}

@@ -20,7 +20,7 @@ from repro_torch.dkv import DkvClient, DkvService
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.flash_attention import (
-    MMA_TILE, flash_attention_cuda, flash_route)
+    MMA_TILE, flash_attention_cuda, flash_route, launches_by_shape)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv_chunked_ref, wkv_sequential
@@ -647,32 +647,86 @@ def _qkv(cuda, b, hq, hkv, sq, d, dtype, seed=0, skv=None):
             for s in shapes]
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,cap,kv_len,dtype", [
-    (2, 4, 2, 256, 256, 64, True, None, None, None, torch.float32),
-    (1, 4, 4, 256, 256, 64, True, 128, 50.0, None, torch.float32),
-    (1, 2, 1, 128, 128, 32, False, None, None, None, torch.float32),
-    (1, 8, 2, 512, 512, 64, True, None, 30.0, None, torch.float32),
-    (2, 2, 2, 256, 256, 128, True, 64, None, None, torch.float32),
-    (1, 4, 2, 256, 256, 64, True, None, None, None, torch.bfloat16),
-    (2, 14, 2, 200, 200, 64, True, None, None, None, torch.bfloat16),
-    (1, 14, 2, 544, 544, 64, True, None, None, None, torch.float32),
-    (1, 4, 2, 33, 77, 96, False, None, 50.0, None, torch.float32),
-    (1, 8, 4, 130, 130, 256, True, 48, 50.0, None, torch.bfloat16),
-    (1, 4, 2, 64, 64, 16, True, None, None, None, torch.float32),
-    (1, 4, 2, 256, 256, 64, True, None, None, 100, torch.float32),
-    (1, 4, 2, 256, 256, 64, False, None, None, 37, torch.bfloat16),
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,window,cap,kv_len,dtype,q0,v_cols,layout", [
+    (2, 4, 2, 256, 256, 64, True, None, None, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 4, 4, 256, 256, 64, True, 128, 50.0, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 2, 1, 128, 128, 32, False, None, None, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 8, 2, 512, 512, 64, True, None, 30.0, None,
+     torch.float32, 0, None, "contiguous"),
+    (2, 2, 2, 256, 256, 128, True, 64, None, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 4, 2, 256, 256, 64, True, None, None, None,
+     torch.bfloat16, 0, None, "contiguous"),
+    (2, 14, 2, 200, 200, 64, True, None, None, None,
+     torch.bfloat16, 0, None, "contiguous"),
+    (1, 14, 2, 544, 544, 64, True, None, None, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 4, 2, 33, 77, 96, False, None, 50.0, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 8, 4, 130, 130, 256, True, 48, 50.0, None,
+     torch.bfloat16, 0, None, "contiguous"),
+    (1, 4, 2, 64, 64, 16, True, None, None, None,
+     torch.float32, 0, None, "contiguous"),
+    (1, 4, 2, 256, 256, 64, True, None, None, 100,
+     torch.float32, 0, None, "contiguous"),
+    (1, 4, 2, 256, 256, 64, False, None, None, 37,
+     torch.bfloat16, 0, None, "contiguous"),
+    # float32 on the CUDA-core route at every padded head dim, ragged
+    # lengths, q0 with kv_len, rows that are not 16-byte aligned, and MLA's
+    # v zero-padded from 128 columns (those output columns exactly 0)
+    (2, 8, 8, 256, 256, 192, True, None, None, None, torch.float32, 0, 128,
+     "contiguous"),
+    (1, 8, 4, 300, 300, 256, True, 128, 50.0, None, torch.float32, 0, None,
+     "contiguous"),
+    (1, 8, 4, 200, 200, 96, True, None, None, None, torch.float32, 0, None,
+     "contiguous"),
+    (1, 4, 2, 100, 333, 128, False, None, 30.0, None, torch.float32, 0,
+     None, "contiguous"),
+    (2, 4, 2, 64, 300, 64, True, None, None, 250, torch.float32, 236, None,
+     "contiguous"),
+    (2, 4, 2, 64, 300, 192, True, None, None, 250, torch.float32, 236, 128,
+     "contiguous"),
+    (1, 4, 2, 130, 130, 64, True, 48, None, 100, torch.float32, 0, None,
+     "unaligned"),
+    (1, 4, 2, 130, 200, 256, False, None, 50.0, None, torch.float32, 0,
+     None, "unaligned"),
+    (2, 14, 2, 96, 96, 64, True, None, None, None, torch.float32, 0, None,
+     "views"),
+    (1, 8, 4, 300, 300, 192, True, 128, 50.0, None, torch.float32, 0, None,
+     "contiguous"),
+    (1, 4, 2, 130, 200, 192, False, None, None, 150, torch.float32, 0, None,
+     "unaligned"),
 ])
 def test_flash_kernel_equals_plain(fp32_cuda, b, hq, hkv, sq, skv, d, causal,
-                                   window, cap, kv_len, dtype):
-    q, k, v = _qkv(fp32_cuda, b, hq, hkv, sq, d, dtype, skv=skv)
+                                   window, cap, kv_len, dtype, q0, v_cols,
+                                   layout):
+    """Each route at its tolerance against the plain version. The float32
+    cases cover the CUDA-core route's instances (DP = 32 to 256), its
+    plain-load path (k and v rows 4 bytes past a 16-byte boundary) and the
+    model's head-transposed views."""
+    if layout == "contiguous":
+        q, k, v = _qkv(fp32_cuda, b, hq, hkv, sq, d, dtype, skv=skv)
+    else:
+        q, k, v = _wide_qkv(fp32_cuda, b, hq, hkv, sq, skv, d, layout,
+                            sq + skv + d, dtype=dtype, scale=0.5)
+    if v_cols:
+        v[..., v_cols:] = 0
+    _build.launches.clear()
     got = flash_attention_cuda(q, k, v, causal=causal, window=window, cap=cap,
-                               kv_len=kv_len)
+                               kv_len=kv_len, q0=q0)
     want = flash_attention_ref(q, k, v, causal=causal, window=window,
-                               cap=cap, kv_len=kv_len)
+                               cap=cap, kv_len=kv_len, q0=q0)
     torch.cuda.synchronize()
+    assert dict(_build.launches) == {flash_route(dtype, d): 1}
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if v_cols:
+        assert not got[..., v_cols:].any()
 
 
 def test_flash_kernel_takes_strided_views_and_counts(fp32_cuda):
@@ -691,6 +745,33 @@ def test_flash_kernel_takes_strided_views_and_counts(fp32_cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(*(torch.zeros(1, 1, 4, 300, device=fp32_cuda),)
                              * 3)
+
+
+def test_flash_launches_are_counted_by_call_shape(cuda):
+    """Each accepted launch adds one to its route and call shape in
+    ``launches_by_shape``, beside ``_build.launches``; the plain version and
+    a refused call add nothing."""
+    g = torch.Generator("cpu").manual_seed(5)
+    calls = (((1, 4, 2, 96, 96, 64), True, torch.float32),
+             ((1, 4, 2, 96, 96, 64), True, torch.float32),
+             ((1, 4, 4, 64, 80, 128), False, torch.float32),
+             ((1, 4, 2, 96, 96, 64), True, torch.bfloat16))
+    _build.launches.clear()
+    launches_by_shape.clear()
+    for (b, hq, hkv, sq, skv, d), causal, dtype in calls:
+        q = torch.randn(b, hq, sq, d, generator=g).to(cuda, dtype)
+        kv = torch.randn(b, hkv, skv, d, generator=g).to(cuda, dtype)
+        flash_attention_cuda(q, kv, kv, causal=causal)
+        flash_ops.flash_attention(q, kv, kv, causal=causal, impl="ref")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.zeros(1, 1, 4, 300, device=cuda),) * 3)
+    torch.cuda.synchronize()
+    assert dict(launches_by_shape) == {
+        ("flash_attention", 1, 4, 2, 96, 96, 64, True): 2,
+        ("flash_attention", 1, 4, 4, 64, 80, 128, False): 1,
+        ("flash_attention_mma", 1, 4, 2, 96, 96, 64, True): 1}
+    assert dict(_build.launches) == {"flash_attention": 3,
+                                     "flash_attention_mma": 1}
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,cap,kv_len,q0", [
@@ -745,28 +826,34 @@ def test_flash_mma_route_takes_strided_views(cuda):
     assert dict(_build.launches) == {"flash_attention_mma": 3}
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 192, 256])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_mma_row_with_all_visited_keys_masked(cuda, causal, d):
+def test_flash_mma_row_with_all_visited_keys_masked(fp32_cuda, causal, d,
+                                                    dtype):
     """kv_len = 0 masks every key: each row averages the keys of the tiles
     it visits (all of them without causality; tiles up to its q tile's
     diagonal with it), p = 1 for each, as the Pallas kernel does; the
-    64 x 64 tile holds at the wide heads too."""
+    64 x 64 tile holds at the wide heads too, on both routes (bf16 on the
+    tensor cores, float32 on the CUDA cores)."""
     b, hq, hkv, s = 1, 2, 1, 200
     g = torch.Generator("cpu").manual_seed(4)
-    q, k, v = (torch.randn(sh, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (torch.randn(sh, generator=g).to(fp32_cuda, dtype)
                for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    _build.launches.clear()
     got = flash_attention_cuda(q, k, v, causal=causal, kv_len=0)
     torch.cuda.synchronize()
+    assert dict(_build.launches) == {flash_route(dtype, d): 1}
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     if not causal:
         torch.testing.assert_close(got.float(), flash_attention_ref(
-            q, k, v, causal=False, kv_len=0).float(), atol=2e-2, rtol=2e-2)
+            q, k, v, causal=False, kv_len=0).float(), atol=tol, rtol=tol)
     vf = v[0, 0].float()
     for row in (0, 63, 64, 150, s - 1):
         last = s if not causal else min(s, (row // MMA_TILE + 1) * MMA_TILE)
         want = vf[:last].mean(0).expand(hq, d)
-        torch.testing.assert_close(got[0, :, row].float(), want, atol=2e-2,
-                                   rtol=2e-2)
+        torch.testing.assert_close(got[0, :, row].float(), want, atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.parametrize("b,hq,sq,skv,d,causal,dtype,v_cols", [
@@ -820,25 +907,25 @@ def test_flash_routes_by_dtype_and_head_dim(fp32_cuda):
                                      "flash_attention": 2}
 
 
-def _wide_qkv(cuda, b, hq, hkv, sq, skv, d, layout, seed):
-    """bf16 q, k, v drawn at 1.5: contiguous; head-transposed views of
-    (B, S, H, D) projections, as the model passes them; or k and v as
-    views whose rows start 2 bytes past a 16-byte boundary (the plain-load
-    path)."""
+def _wide_qkv(cuda, b, hq, hkv, sq, skv, d, layout, seed,
+              dtype=torch.bfloat16, scale=1.5):
+    """q, k, v of ``dtype`` drawn at ``scale``: contiguous; head-transposed
+    views of (B, S, H, D) projections, as the model passes them; or k and v
+    as views whose rows start one element (2 or 4 bytes) past a 16-byte
+    boundary (the plain-load path)."""
     g = torch.Generator("cpu").manual_seed(seed)
 
     def draw(h, s):
         if layout == "views":
-            return (torch.randn(b, s, h, d, generator=g) * 1.5).to(
-                cuda, torch.bfloat16).transpose(1, 2)
-        return (torch.randn(b, h, s, d, generator=g) * 1.5).to(
-            cuda, torch.bfloat16)
+            return (torch.randn(b, s, h, d, generator=g) * scale).to(
+                cuda, dtype).transpose(1, 2)
+        return (torch.randn(b, h, s, d, generator=g) * scale).to(cuda, dtype)
 
     q = draw(hq, sq)
     if layout == "unaligned":
-        k, v = ((torch.randn(b, hkv, skv, d + 1, generator=g) * 1.5).to(
-            cuda, torch.bfloat16)[..., 1:] for _ in range(2))
-        assert k.data_ptr() % 16 == 2 and k.stride(-1) == 1
+        k, v = ((torch.randn(b, hkv, skv, d + 1, generator=g) * scale).to(
+            cuda, dtype)[..., 1:] for _ in range(2))
+        assert k.data_ptr() % 16 == k.element_size() and k.stride(-1) == 1
     else:
         k, v = draw(hkv, skv), draw(hkv, skv)
     return q, k, v
