@@ -2226,11 +2226,15 @@ PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
                "chunk_gather_byval": "chunk_gather_byval_kernel"}
 #: the padded head dims of the CUDA-core flash kernel, one instance each
 FLASH_F32_DPS = (32, 64, 96, 128, 192, 256)
+#: the padded head dims of the tensor-core flash kernel, one instance each
+#: (the same six)
+FLASH_MMA_DPS = FLASH_F32_DPS
 #: compiled instances gated the same way, by the name ``ptxas_report`` gives
-#: them: the tensor-core flash kernel at DP = 192 runs deepseek-v2's MLA
-#: prefill (DP = 256, gemma2's, is reported only); every instance of the
-#: CUDA-core one (float32)
-PTXAS_GATED_INSTANCES = ("flash_mma_kernelILi192E",
+#: them: every instance of the tensor-core flash kernel (bf16), which ptxas
+#: must also not report as running its wgmma serialized, and every instance
+#: of the CUDA-core one (float32)
+PTXAS_GATED_INSTANCES = (*(f"flash_mma_kernelILi{dp}E"
+                           for dp in FLASH_MMA_DPS),
                          *(f"flash_kernelILi{dp}E" for dp in FLASH_F32_DPS))
 
 
@@ -2240,22 +2244,36 @@ PTXAS_KERNELS = ("flash_mma_kernel", "flash_kernel", "wkv_split_kernel",
                  *set(PTXAS_GATED.values()))
 
 
+def _instance(name: str, kernels):
+    """The instance name of a mangled kernel name, None for other kernels."""
+    hit = [k for k in kernels if k in name]
+    return name[name.index(hit[0]):].split("EEv")[0] if hit else None
+
+
 def ptxas_report(log: str, kernels=PTXAS_KERNELS) -> dict:
     """Registers, stack, spills and static shared memory of every compiled
     instance of ``kernels``, read from the text of an ``-Xptxas -v`` build
     log (the flash kernels and the split WKV kernel take their shared
     memory dynamically, at launch: the sizes of ``MmaTile``, ``F32Tile``
-    and ``SplitSmem`` in their sources)."""
+    and ``SplitSmem`` in their sources), and ``wgmma_serialized``, the
+    reason ptxas gives where it runs an instance's ``wgmma.mma_async``
+    instructions one at a time ("Potential Performance Loss: ...")."""
     out: dict = {}
     fn = None
     for line in log.splitlines():
+        m = re.search(r"wgmma\.mma_async instructions are serialized "
+                      r"(?:due to )?(.*?)(?: in the function '([^']+)')?"
+                      r"\.?$", line)
+        if m:
+            where = _instance(m[2], kernels) if m[2] else fn
+            if where is not None:
+                out.setdefault(where, {})["wgmma_serialized"] = m[1]
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
-            hit = [k for k in kernels if k in name]
-            fn = name[name.index(hit[0]):].split("EEv")[0] if hit else None
+            fn = _instance(m.group(1), kernels)
             if fn:
-                out[fn] = {}
+                out.setdefault(fn, {})
             continue
         if fn is None:
             continue
@@ -2310,11 +2328,16 @@ def _bound(nbytes, flops, peak):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+#: qwen2-0.5b's attention in the train phase (``TRAIN_SIZE``, and each of
+#: ``GRAD_FLASH_CASES``' qwen2 train calls): 48 ``flash_attention_mma``
+#: launches a step, its forward and remat's rerun
+FLASH_TRAIN_SHAPE = ("qwen2_0_5b", "train forward", 4, 14, 2, 4096, 4096,
+                     64, True, None)
 #: the flash-attention shapes of the bf16 prefills on the main path
-#: (``SERVE_SIZE``), and gemma2-2b's prefill (D = 256, served by no phase):
-#: (arch, what, b, hq, hkv, sq, skv, d, causal, columns of v that are not
-#: zero). The first row is the headline of ``flash_attention_mma`` in the
-#: ``kernels`` line.
+#: (``SERVE_SIZE``), gemma2-2b's prefill (D = 256, served by no phase) and
+#: qwen2-0.5b's train shape (``FLASH_TRAIN_SHAPE``): (arch, what, b, hq,
+#: hkv, sq, skv, d, causal, columns of v that are not zero). The first row
+#: is the headline of ``flash_attention_mma`` in the ``kernels`` line.
 FLASH_MODEL_SHAPES = (
     ("qwen2_0_5b", "attention", 8, 14, 2, 512, 512, 64, True, None),
     ("olmoe_1b_7b", "attention", 4, 16, 16, 512, 512, 128, True, None),
@@ -2326,6 +2349,7 @@ FLASH_MODEL_SHAPES = (
     ("seamless_m4t_medium", "decoder self", 4, 16, 16, 512, 512, 64, True,
      None),
     ("gemma2_2b", "attention", 4, 8, 4, 512, 512, 256, True, None),
+    FLASH_TRAIN_SHAPE,
 )
 #: the flash-attention shapes of the float32 consistency phase
 #: (``CONSISTENCY``: ``forward_full`` over s tokens, ``prefill`` over the
@@ -2634,7 +2658,8 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
 def ptxas_phase() -> dict:
     """Print the ptxas report of every redesigned kernel; fail unless each
     gated one (``PTXAS_GATED``, ``PTXAS_GATED_INSTANCES``) has a 0-byte
-    stack frame and no spills. Returns the report by entry point."""
+    stack frame, no spills and no serialized wgmma. Returns the report by
+    entry point."""
     ptxas = {}
     for lib in PTXAS_LIBRARIES:
         ptxas.update(ptxas_report(
@@ -2659,6 +2684,9 @@ def ptxas_phase() -> dict:
               and rep.get("spill_store_bytes") == 0
               and rep.get("spill_load_bytes") == 0,
               f"ptxas {fn}: stack or spills {rep}")
+        check("wgmma_serialized" not in rep,
+              f"ptxas {fn}: wgmma serialized, due to "
+              f"{rep.get('wgmma_serialized')}")
     return out
 
 
@@ -3573,8 +3601,9 @@ def _run_summary(r: dict) -> dict:
 def _by_shape_row(row: dict, route: str, serving: dict) -> dict:
     """One flash shape's times for the ``kernels`` line, with the launches
     of ``route`` counted in its model's prefill; a shape of a model that no
-    phase serves is ``served: false`` and has no count."""
-    served = row["arch"] in serving
+    phase serves, and the train shape, are ``served: false`` and have no
+    prefill count."""
+    served = row["arch"] in serving and row["what"] != FLASH_TRAIN_SHAPE[1]
     return dict(row, served=served, launches_a_prefill=serving[row["arch"]][
         "prefill_launches"].get(route, 0) if served else None)
 

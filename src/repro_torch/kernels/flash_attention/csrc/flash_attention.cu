@@ -27,33 +27,56 @@
 // whose visited keys are all masked), Sq and Skv need not be multiples of
 // the tile (rows past Sq are not written, keys past Skv are not keys: their
 // p is exactly 0), q, k and v may be strided views with a contiguous last
-// dimension, and D is zero-padded inside shared memory. Causal q tiles are
-// launched last tile first: the last tile of a head visits the most kv
-// tiles, so the longest CTAs start first and the short ones fill the tail.
+// dimension, and D is zero-padded inside shared memory. Causal q tiles (on
+// the tensor-core route, pairs of them) are launched last first: the last
+// tile of a head visits the most kv tiles, so the longest CTAs start first
+// and the short ones fill the tail.
 //
 // Two routes, each its own C entry point, chosen by dtype alone:
 //
 // flash_attention_mma (bfloat16, D <= 256; D padded to 32/64/96/128/192/
-// 256): the tensor-core route. Design: one CTA of four warps per
-// (b*Hq + h, 64-row q tile); each warp owns 16 query rows. QK^T and P.V
-// run as bf16 mma.sync.m16n8k16 with float32 accumulators (bf16 x bf16
-// products are exact in float32, as the Pallas kernel's widened product
-// is). The score fragment stays in registers: the softmax's row max and
-// row sum reduce across the four threads of a quad with shuffles, and the
-// score accumulator, rounded to bf16, is in registers the A operand of
-// P.V. Q, K and V tiles stay bf16 in shared memory with rows padded by 16
-// bytes (an odd number of 16-byte units a row: ldmatrix's eight row
-// addresses fall in eight different bank groups, no conflicts) and are
-// read with ldmatrix (.trans for V); Q's fragments are reread from shared
-// memory at each kv tile rather than held, so that registers stay under
-// the cap that lets 4 / 3 / 2 CTAs share an SM (D <= 64 / 96 / 128). K
-// tiles are double-buffered with 16-byte cp.async, so the next tile's copy
-// overlaps this tile's products, and so are V tiles, except where one V
-// stage lets two CTAs share an SM (DP = 192, below); a view whose rows are
-// not 16-byte aligned is copied by plain loads instead. A tile that no
-// mask and no key past Skv reaches skips the per-element mask tests. Each
-// q head of a GQA group reads its K/V tiles itself (they stay in the 50 MB
-// L2); sharing them across the group in one CTA is not done.
+// 256): the tensor-core route, built from what Hopper added. One CTA of
+// three warpgroups per (b*Hq + h, pair of 64-row q tiles), two CTAs an SM
+// at DP <= 64 and one above:
+// - A producer warpgroup, of which one thread issues TMA copies
+//   (cp.async.bulk.tensor over 4-d tensor maps of (d, s, h, b) with the
+//   views' own strides; rows past Sq or Skv and columns past d arrive as
+//   zeros, which pads D to DP): each consumer's Q tile once, then K and V
+//   of the union of the two q tiles' kv ranges into a ring of stages
+//   guarded by mbarriers (full: the bytes have landed; empty: every
+//   consumer warp is done with the stage). As many stages as the CTA's
+//   share of the SM's shared memory holds: 12 / 5 at DP = 32 / 64 (two
+//   CTAs), 8 / 6 / 3 / 2 at DP = 96 / 128 / 192 / 256. It drops to 24 / 40
+//   registers a thread (setmaxnreg.dec; two CTAs / one) and the consumers
+//   take them (setmaxnreg.inc, 104 / 232).
+// - Two consumer warpgroups, each owning one q tile and visiting exactly
+//   the kv tiles of that tile's skip rule (a tile of the union that its q
+//   tile does not visit is released unread; under causal and window masks
+//   the two ranges differ by about one tile). S = Q K^T is
+//   wgmma.m64n64k16 with both operands in shared memory, K-major. The
+//   softmax runs on the accumulator fragment in registers: a thread holds
+//   two rows' 16 scores, the rows reduce across a quad with shuffles, in
+//   log2 units (scale * log2 e in one multiply, exp as ex2.approx); a tile
+//   that a mask reaches compares each score's constant key offset with
+//   bounds made once a row. p, rounded to bf16 in registers, is the A
+//   operand of wgmma.m64nDPk16, whose B is the V tile read MN-major
+//   (transposed). A consumer runs its tiles one product after the other;
+//   the other consumer's (and the other CTA's) products fill the tensor
+//   cores meanwhile. Issuing tile i's Q K^T beside tile i - 1's P.V, or
+//   taking turns between the consumers on named barriers, measured slower
+//   (ptxas serializes the latter's wgmma).
+// - Shared tiles are boxes of 64 rows x 64 columns in the 128-byte swizzle
+//   (x 32 columns in the 64-byte swizzle at DP = 32 and 96), the layouts
+//   that TMA writes and wgmma's descriptors name. A view that TMA cannot
+//   describe (d or a stride not a multiple of 8 elements, a base not
+//   16-byte aligned) is copied by the producer warpgroup's own loads into
+//   the same layout, fenced for the async proxy before it arrives on the
+//   stage's barrier: the same kernel, no second route.
+// - CTAs run pair by pair over all heads, the longest pairs first; where K
+//   and V of all heads exceed half the L2 (deepseek-v2's MLA), head by
+//   head, so that the pairs of a head read its K and V from L2.
+// - The epilogue divides by max(l, 1e-30), rounds to bf16 and stores the
+//   rows < Sq from the fragment.
 //
 // What bounds it on this card: at qwen2-0.5b's prefill shape (8 x 14/2
 // heads, S = 512, D = 64) the causal work is ~3.8 GFLOP against ~17 MB of
@@ -61,22 +84,14 @@
 // heads, S = 512, D = 192, v zero-padded from 128 columns) ~51.6 GFLOP
 // against ~403 MB, ~128 FLOP a byte. Both lie under the bf16 tensor-core
 // ridge (~295 FLOP a byte), so at the card's peaks the bytes bound them
-// (~5 us and ~0.12 ms).
+// (~5 us and ~0.12 ms). qwen2's training shape (4 x 14/2 heads, S = 4,096,
+// D = 64) is ~120 GFLOP against ~59 MB: the operations bound it (~0.12
+// ms), where the softmax's ex2 per score costs about as much as the
+// products at D = 64.
 //
-// Wide heads (DP = 192, 256) keep the 64 x 64 tile. The tile is part of
-// the function: a row whose visited keys are all masked averages the keys
-// of the tiles it visits, so another BQ or BK would change such rows.
-// The price is registers and shared memory: a warp's 16 x DP float32
-// accumulator takes DP / 2 registers a thread (96 at 192, 128 at 256)
-// beside the 32 of its 16 x 64 score fragment, so one or two CTAs fit an
-// SM at 255 registers a thread. Q and two stages of K and V take 128,000
-// B at DP = 192 and 168,960 B at DP = 256, one CTA an SM; at DP = 192 a
-// single V stage (102,400 B) lets two CTAs share an SM, and its V copy
-// overlaps the tile's Q K^T and softmax instead of the previous tile's
-// products. With four warps an SM the kernel stalls on its own
-// latencies, so a second CTA is worth more than a second V stage: at the
-// MLA shape it runs in ~0.6 of the two-stage time (an H100,
-// tools/flash_variants.py).
+// The 64 x 64 tile is kept at every DP: it is part of the function (a row
+// whose visited keys are all masked averages the keys of the tiles it
+// visits), so each consumer owns one 64-row q tile and steps 64 keys.
 //
 // flash_attention (float32, D <= 256; D padded to 32/64/96/128/192/256):
 // the CUDA-core route. Float32 inputs are multiplied in full float32 (no
@@ -140,11 +155,15 @@
 // - A warp whose rows all lie past Sq (in the last, partial q tile) skips
 //   the products and the softmax.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+
 
 namespace {
 
@@ -169,36 +188,6 @@ __device__ __forceinline__ int q_tile(int causal) {
                 : static_cast<int>(blockIdx.y);
 }
 
-// ------------------------------------------------ tensor-core route (bf16)
-constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
-constexpr int kMmaBQ = 64;
-constexpr int kMmaBK = 64;
-
-// The shared memory of an H100 SM (228 KiB), of which the runtime keeps
-// 1 KiB for each CTA
-constexpr size_t kSmemPerSM = 228 * 1024;
-constexpr size_t kSmemPerCTA = 1024;
-
-// CTAs that one SM holds at `bytes` of dynamic shared memory each
-constexpr int smem_ctas(size_t bytes) {
-  return static_cast<int>(kSmemPerSM / (bytes + kSmemPerCTA));
-}
-
-// Shared memory of the tensor-core route: Q, two stages of K, and two
-// stages of V, or one (SV) where that lets two CTAs share an SM.
-template <int DP>
-struct MmaTile {
-  static constexpr int RS = DP + 8;  // row stride in bf16: 16 bytes of pad
-  static constexpr int elems = kMmaBQ * RS;  // one Q, K or V tile
-  static constexpr size_t tile = sizeof(__nv_bfloat16) * elems;
-  static constexpr bool SV =
-      smem_ctas(5 * tile) < 2 && smem_ctas(4 * tile) >= 2;
-  static constexpr int tiles = SV ? 4 : 5;
-  static constexpr size_t bytes = tiles * tile;
-  static_assert(kMmaBQ == kMmaBK, "one tile shape for Q, K and V");
-  static_assert(DP % 16 == 0 && DP <= 256, "DP: a multiple of 16, <= 256");
-};
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -214,347 +203,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// two floats rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a (rows, d) bf16 matrix with row stride `ss`
-// into a padded DP-wide shared tile; rows >= `rows` and columns >= d are
-// zero. vec: d, the strides and the base are 16-byte multiples, so the
-// copy is asynchronous (cp.async, to be waited for); otherwise it is made
-// by plain loads and stores.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t ss, int row0, int rows,
-                                          int d, bool vec, int tid) {
-  constexpr int RS = MmaTile<DP>::RS;
-  if (vec) {
-    constexpr int CPR = DP / 8;  // 16-byte chunks a row
-#pragma unroll
-    for (int i = tid; i < kMmaBQ * CPR; i += kMmaThreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int row = row0 + r;
-      const bool in = row < rows && c < d;
-      cp_async16(smem_addr(dst + r * RS + c), in ? src + row * ss + c : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < kMmaBQ * DP; i += kMmaThreads) {
-      const int r = i / DP, c = i % DP;
-      const int row = row0 + r;
-      dst[r * RS + c] = (row < rows && c < d) ? src[row * ss + c]
-                                              : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// CTAs an SM should hold: registers are capped at 65,536 / (128 x this),
-// 255 a thread from two CTAs down. No more than the shared tiles let in.
-template <int DP>
-constexpr int mma_min_blocks() {
-  constexpr int by_regs = DP <= 64 ? 4 : (DP <= 96 ? 3 : 2);
-  constexpr int by_smem = smem_ctas(MmaTile<DP>::bytes);
-  return by_regs < by_smem ? by_regs : by_smem;
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>())
-flash_mma_kernel(Params p, int vec) {
-  using L = MmaTile<DP>;
-  constexpr int RS = L::RS;
-  constexpr int KS = DP / 16;      // k-steps of Q K^T
-  constexpr int NT = kMmaBK / 8;   // 8-key column tiles of the scores
-  constexpr int OT = DP / 8;       // 8-wide column tiles of the output
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* const Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  auto Ks = [&](int st) { return Qs + (1 + st) * L::elems; };
-  auto Vs = [&](int st) { return Qs + (3 + (L::SV ? 0 : st)) * L::elems; };
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row / column pair
-
-  const int64_t bh = blockIdx.x;  // b * Hq + h
-  const int b = static_cast<int>(bh / p.hq);
-  const int h = static_cast<int>(bh % p.hq);
-  const int kvh = h / (p.hq / p.hkv);
-  const int q_start = q_tile(p.causal) * kMmaBQ;
-  const int qlo = p.q0 + q_start;  // position of the tile's first row
-
-  const auto* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
-                  h * p.q_sh;
-  const auto* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb +
-                  kvh * p.k_sh;
-  const auto* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb +
-                  kvh * p.v_sh;
-
-  // the kv tiles this q tile visits: the whole-tile skip rule of
-  // _flash_kernel leaves one contiguous range
-  const int nk = (p.skv + kMmaBK - 1) / kMmaBK;
-  int kt_lo = 0, kt_hi = nk;
-  if (p.causal) {  // skip k_start > qlo + BQ - 1
-    const int64_t last = static_cast<int64_t>(qlo) + kMmaBQ - 1;
-    const int64_t end = last / kMmaBK + 1;
-    kt_hi = last < 0 ? 0 : static_cast<int>(end < nk ? end : nk);
-  }
-  if (p.has_window) {  // skip k_start + BK - 1 <= qlo - window
-    const int64_t edge = static_cast<int64_t>(qlo) - p.window - kMmaBK + 1;
-    const int64_t first = edge / kMmaBK + 1;
-    kt_lo = edge < 0 ? 0 : static_cast<int>(first < nk ? first : nk);
-  }
-
-  // Copy groups, oldest first: Q and the first K tile (and V tile, with
-  // two V stages); the first V tile (with one V stage; else empty); then
-  // each kv tile commits one group at its start, the next K (and V) tile,
-  // and one at its end, the next V tile (with one V stage; else empty).
-  // So at the start of tile kt only the newest two groups may still be in
-  // flight, and K(kt) is in place; with one V stage, V(kt) is in place
-  // once only the newest one is.
-  const bool vec_load = vec != 0;
-  load_tile<DP>(Qs, q, p.q_ss, q_start, p.sq, p.d, vec_load, tid);
-  if (kt_lo < kt_hi) {
-    load_tile<DP>(Ks(0), k, p.k_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
-                  tid);
-    if (!L::SV)
-      load_tile<DP>(Vs(0), v, p.v_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
-                    tid);
-  }
-  cp_async_commit();
-  if (L::SV && kt_lo < kt_hi)
-    load_tile<DP>(Vs(0), v, p.v_ss, kt_lo * kMmaBK, p.skv, p.d, vec_load,
-                  tid);
-  cp_async_commit();
-
-  float acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  // rows g and g + 8 of the warp's 16: the running max, and this thread's
-  // part of the running sum (the quad's four parts are added at the end)
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_part[2] = {0.f, 0.f};
-
-  const int row_base = warp * 16;
-  const int qpos0 = qlo + row_base + g;  // position of row g
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int st = (kt - kt_lo) & 1;
-    if (kt + 1 < kt_hi) {  // prefetch the next tile into the other stage
-      load_tile<DP>(Ks(st ^ 1), k, p.k_ss, (kt + 1) * kMmaBK, p.skv, p.d,
-                    vec_load, tid);
-      if (!L::SV)
-        load_tile<DP>(Vs(st ^ 1), v, p.v_ss, (kt + 1) * kMmaBK, p.skv, p.d,
-                      vec_load, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<2>();
-    __syncthreads();  // K(kt) (and, the first time, Q) is in place
-
-    // S = Q K^T for the warp's 16 rows x 64 keys, in registers
-    const __nv_bfloat16* ks_tile = Ks(st);
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4];  // Q's A fragment, reread: registers are scarcer
-      ldsm_x4(qa, smem_addr(Qs + (row_base + lane % 16) * RS + ks * 16 +
-                            8 * (lane / 16)));
-#pragma unroll
-      for (int j2 = 0; j2 < NT / 2; ++j2) {
-        uint32_t bk[4];
-        ldsm_x4(bk, smem_addr(ks_tile +
-                              (j2 * 16 + lane % 8 + 8 * (lane / 16)) * RS +
-                              ks * 16 + 8 * ((lane / 8) % 2)));
-        mma_bf16(s[2 * j2], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * j2 + 1], qa, bk[2], bk[3]);
-      }
-    }
-
-    // scale, softcap, masks; then the online softmax of rows g and g + 8.
-    // A tile that no mask and no key past Skv reaches skips the tests.
-    const int k_start = kt * kMmaBK;
-    const int k_last = k_start + kMmaBK - 1;
-    const bool masked = k_last >= p.skv ||
-                        (p.causal && k_last > qlo) ||
-                        (p.has_window && k_start <= qlo + kMmaBQ - 1 -
-                                                        p.window) ||
-                        (p.has_kv_len && k_last >= p.kv_len);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
-        if (p.has_cap) x = p.cap * tanhf(x / p.cap);
-        if (masked) {
-          const int kpos = k_start + j * 8 + 2 * t4 + (e & 1);
-          const int qpos = qpos0 + 8 * (e >> 1);
-          bool keep = true;
-          if (p.causal) keep = keep && kpos <= qpos;
-          if (p.has_window) keep = keep && kpos > qpos - p.window;
-          if (p.has_kv_len) keep = keep && kpos < p.kv_len;
-          if (!keep) x = kNegInf;
-          if (kpos >= p.skv) x = -INFINITY;  // past the last key: no key
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      corr[i] = __expf(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_part[i] *= corr[i];
-    }
-    // p = exp(s - m): l sums it unrounded, P.V takes it rounded to bf16;
-    // the score fragment of keys 16kk..16kk+15 is the A fragment of P.V
-    uint32_t pa[NT / 2][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float e4[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        e4[e] = __expf(s[j][e] - m_run[e >> 1]);
-        l_part[e >> 1] += e4[e];
-      }
-      pa[j / 2][2 * (j % 2)] = pack_bf16(e4[0], e4[1]);      // row g
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(e4[2], e4[3]);  // row g + 8
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    if (L::SV) {
-      cp_async_wait<1>();
-      __syncthreads();  // V(kt) is in place
-    }
-
-    // acc += P V
-    const __nv_bfloat16* vs_tile = Vs(st);
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-#pragma unroll
-      for (int j2 = 0; j2 < OT / 2; ++j2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, smem_addr(vs_tile +
-                                    (kk * 16 + lane % 8 +
-                                     8 * ((lane / 8) % 2)) * RS +
-                                    j2 * 16 + 8 * (lane / 16)));
-        mma_bf16(acc[2 * j2], pa[kk], bv[0], bv[1]);
-        mma_bf16(acc[2 * j2 + 1], pa[kk], bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // stage st is consumed before it is loaded again
-    if (L::SV && kt + 1 < kt_hi)
-      load_tile<DP>(Vs(0), v, p.v_ss, (kt + 1) * kMmaBK, p.skv, p.d,
-                    vec_load, tid);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  float l_row[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_part[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l_row[i] = fmaxf(l, 1e-30f);
-  }
-  auto* o = static_cast<__nv_bfloat16*>(p.o) +
-            bh * static_cast<int64_t>(p.sq) * p.d;
-  const bool pairs = (p.d % 2) == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q_start + row_base + g + 8 * i;
-    if (row >= p.sq) continue;
-    __nv_bfloat16* orow = o + static_cast<int64_t>(row) * p.d;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int c = j * 8 + 2 * t4;
-      const float x0 = acc[j][2 * i] / l_row[i];
-      const float x1 = acc[j][2 * i + 1] / l_row[i];
-      if (pairs && c + 1 < p.d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(x0, x1);
-      } else {
-        if (c < p.d) orow[c] = __float2bfloat16_rn(x0);
-        if (c + 1 < p.d) orow[c + 1] = __float2bfloat16_rn(x1);
-      }
-    }
-  }
-}
-
-template <int DP>
-int launch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
-  using L = MmaTile<DP>;
-  auto kernel = flash_mma_kernel<DP>;
-  static bool configured = false;
-  if (!configured) {
-    // all of the SM's unified memory as shared memory: room for
-    // mma_min_blocks CTAs' tiles
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L::bytes));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const dim3 grid(static_cast<unsigned>(static_cast<int64_t>(batch) * p.hq),
-                  static_cast<unsigned>((p.sq + kMmaBQ - 1) / kMmaBQ));
-  kernel<<<grid, kMmaThreads, L::bytes, stream>>>(p, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
-  if (p.d <= 32) return launch_mma<32>(p, batch, vec, stream);
-  if (p.d <= 64) return launch_mma<64>(p, batch, vec, stream);
-  if (p.d <= 96) return launch_mma<96>(p, batch, vec, stream);
-  if (p.d <= 128) return launch_mma<128>(p, batch, vec, stream);
-  if (p.d <= 192) return launch_mma<192>(p, batch, vec, stream);
-  if (p.d <= 256) return launch_mma<256>(p, batch, vec, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------- CUDA-core route (float32)
@@ -1058,6 +706,836 @@ int dispatch_f32(const Params& p, int batch, int vec, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------ tensor-core route (bf16)
+constexpr int kMmaThreads = 384;  // a producer warpgroup, two consumer ones
+constexpr int kMmaBQ = 64;        // rows of a consumer's q tile
+constexpr int kMmaBK = 64;        // keys of a kv tile
+// The SM's shared memory (228 KiB), of which the runtime keeps 1 KiB for
+// each CTA
+constexpr size_t kSmemPerSM = 228 * 1024;
+constexpr size_t kSmemPerCTA = 1024;
+static_assert(kMmaBQ == kF32BQ && kMmaBK == kF32BK,
+              "visited_range's tiles are the route's");
+
+// CTAs an SM at a padded head dim, and the registers a thread of each role
+// holds after setmaxnreg. Two CTAs an SM where a consumer's fragments (the
+// 32 scores, DP / 2 of the accumulator, 16 of P) fit 104 registers: at DP
+// <= 64. The producer's release pays for the consumers' raise out of the
+// CTA's pool: 384 threads x 168 registers at launch (one CTA an SM) or x 80
+// (two).
+template <int DP>
+struct MmaRegs {
+  static constexpr int ctas = DP <= 64 ? 2 : 1;
+  static constexpr int launch = ctas == 1 ? 168 : 80;
+  static constexpr int producer = ctas == 1 ? 40 : 24;
+  static constexpr int consumer = ctas == 1 ? 232 : 104;
+  static_assert(128 * producer + 256 * consumer <= kMmaThreads * launch &&
+                    kMmaThreads * launch * ctas <= 65536,
+                "registers of a CTA");
+};
+
+// Shared memory of the tensor-core route at one padded head dim: the
+// barriers, then two Q tiles (one a consumer), then `stages` pairs of K
+// and V tiles, as many as the CTA's share of the SM holds. A tile is DP / W
+// boxes of 64 rows x W columns, each as TMA writes it: rows of 2 W bytes,
+// their 16-byte chunks swizzled within 8-row groups (128-byte swizzle at W =
+// 64, 64-byte at W = 32, the widest that divides DP).
+template <int DP>
+struct MmaTile {
+  static constexpr int W = DP % 64 == 0 ? 64 : 32;  // columns of a box
+  static constexpr int NB = DP / W;                 // boxes of a tile
+  static constexpr uint32_t row = 2 * W;            // bytes of a box row
+  static constexpr uint32_t group = 8 * row;        // bytes of 8 rows
+  static constexpr uint32_t box = kMmaBK * row;
+  static constexpr uint32_t tile = NB * box;
+  // wgmma's descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t layout = W == 64 ? 1 : 2;
+  // 1 KiB to align the tiles to the swizzle's 1,024-byte period, 1 KiB of
+  // barriers
+  static constexpr size_t head = 2048;
+  static constexpr size_t budget = MmaRegs<DP>::ctas == 1
+                                       ? kSmemPerBlock
+                                       : kSmemPerSM / MmaRegs<DP>::ctas -
+                                             kSmemPerCTA;
+  static constexpr int stages =
+      static_cast<int>((budget - head - 2 * size_t(tile)) / (2 * tile));
+  static constexpr size_t bytes = head + (2 + 2 * stages) * size_t(tile);
+  static_assert(DP % 32 == 0 && DP <= 256, "DP: a multiple of 32, <= 256");
+  static_assert(stages >= 2 && bytes <= budget, "two stages at least");
+  static_assert(8 * (2 + 3 * stages) <= 1024, "the barriers' room");
+};
+
+// The tensor maps of q, k and v: 4-d, (d, s, h, b) with the views' strides,
+// boxes of W columns x 64 rows
+struct MmaMaps {
+  CUtensorMap q, k, v;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Registers that an asynchronous wgmma reads or writes: the compiler keeps
+// them in place, and moves no access to them across this point
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets, swizzle layout
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+// two floats rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 64, float32) = A B^T (+ d where scale_d != 0): A (64 x 16) and
+// B (64 x 16) bf16 in shared memory, both K-major, named by descriptors
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (64 x N, float32) += A B: A (64 x 16) bf16 in registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B (16 x N) bf16 in shared
+// memory, MN-major (transposed), named by a descriptor
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "
+      "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// S (64 x 64) = Q K^T: both tiles K-major (d along a row). A step of 16
+// columns lies inside one box, at 32 bytes a step within its rows.
+template <int DP>
+__device__ __forceinline__ void qk_product(float (&s)[32], uint32_t q,
+                                           uint32_t k) {
+  using L = MmaTile<DP>;
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = (ks * 16 / L::W) * L::box + (ks * 16 % L::W) * 2;
+    wgmma_ss_n64(s, smem_desc(q + off, 16, L::group, L::layout),
+                 smem_desc(k + off, 16, L::group, L::layout), ks > 0);
+  }
+}
+// O (64 x DP) += P V: P in registers, V MN-major (d along a row); the
+// descriptor steps 8 keys by `group` bytes and W columns by a box
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&o)[DP / 2],
+                                           const uint32_t (&pa)[4][4],
+                                           uint32_t v) {
+  using L = MmaTile<DP>;
+#pragma unroll
+  for (int kk = 0; kk < kMmaBK / 16; ++kk)
+    wgmma_rs<DP>(o, pa[kk],
+                 smem_desc(v + kk * 2 * L::group, L::box, L::group,
+                           L::layout));
+}
+
+// Scale, softcap and masks of a warp's 16 x 64 scores of kv tile kt (rows
+// row and row + 8 of the q tile whose first row sits at position qlo; keys
+// 8 j + 2 t4 + {0, 1}), in log2 units, then the online softmax of its two
+// rows across their quad: m_run and l_part updated, corr the factor of the
+// accumulator, and s replaced by p = exp(s - m), unrounded.
+__device__ __forceinline__ void softmax_mma(const Params& p, float (&s)[32],
+                                            float (&m_run)[2],
+                                            float (&l_part)[2],
+                                            float (&corr)[2], int kt,
+                                            int qlo, int row, int t4,
+                                            float scale2) {
+  const int k_start = kt * kMmaBK;
+  const int k_last = k_start + kMmaBK - 1;
+  const bool masked = k_last >= p.skv || (p.causal && k_last > qlo) ||
+                      (p.has_window && k_start <= qlo + kMmaBQ - 1 -
+                                           p.window) ||
+                      (p.has_kv_len && k_last >= p.kv_len);
+  // sc: the scale s still needs. A tile that no softcap and no mask
+  // reaches keeps its raw scores: its max scales exactly (scale2 > 0),
+  // and exp takes the scale in one FMA with the max
+  float sc = 1.f;
+  if (p.has_cap) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = p.cap * tanhf(s[e] * p.scale / p.cap) * kLog2e;
+  } else if (masked) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= scale2;
+  } else {
+    sc = scale2;
+  }
+  if (masked) {
+    // score e is key k0 + off(e), off = 8 (e / 4) + (e & 1) a constant;
+    // it is kept where lo_r < off <= hi_r for its row r, and is no key
+    // from off >= past on
+    const int k0 = k_start + 2 * t4;
+    const int past = p.skv - k0;
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qlo + row + 8 * r;
+      hi[r] = p.causal ? qpos - k0 : INT_MAX;
+      if (p.has_kv_len) hi[r] = min(hi[r], p.kv_len - 1 - k0);
+      lo[r] = p.has_window ? qpos - p.window - k0 : INT_MIN;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int off = 8 * (e / 4) + (e & 1), r = (e >> 1) & 1;
+      if (off <= lo[r] || off > hi[r]) s[e] = kNegInf;
+      if (off >= past) s[e] = -INFINITY;  // past the last key: no key
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_run[i], mx[i] * sc);
+    corr[i] = ex2(m_run[i] - m_new);
+    m_run[i] = m_new;
+    l_part[i] *= corr[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = ex2(fmaf(s[e], sc, -m_run[(e >> 1) & 1]));
+    l_part[(e >> 1) & 1] += s[e];
+  }
+}
+// p rounded to bf16: the score fragment of keys 16 kk .. 16 kk + 15 is the
+// A fragment of P.V's step kk (rows row and row + 8, keys + 0 and + 8)
+__device__ __forceinline__ void p_fragment(const float (&s)[32],
+                                           uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+// the accumulator's rows row and row + 8 times corr
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+}
+
+// Rows [row0, row0 + 64) of a (rows, d) bf16 matrix with row stride `ss`
+// into a tile at `dst` in the layout TMA writes (rows >= `rows` and
+// columns >= d zero), by the producer warpgroup's 128 threads with plain
+// loads: the path of views that TMA cannot describe.
+template <int DP>
+__device__ __forceinline__ void fill_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t ss, int row0, int rows,
+                                          int d, int t) {
+  using L = MmaTile<DP>;
+  constexpr int CPR = DP / 8;  // 16-byte chunks a row
+  for (int i = t; i < kMmaBK * CPR; i += 128) {
+    const int r = i / CPR, col0 = (i % CPR) * 8;
+    const int row = row0 + r;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = col0 + 2 * e;
+      uint32_t lo = 0, hi = 0;
+      if (row < rows) {
+        const __nv_bfloat16* x = src + row * ss + c;
+        if (c < d) lo = __bfloat16_as_ushort(x[0]);
+        if (c + 1 < d) hi = __bfloat16_as_ushort(x[1]);
+      }
+      w[e] = lo | hi << 16;
+    }
+    uint32_t off = (col0 / L::W) * L::box + r * L::row + (col0 % L::W) * 2;
+    off ^= ((off >> 7) & (L::row / 16 - 1)) << 4;  // the swizzle
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + off),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// Every thread of the producer warpgroup has written its share of a tile
+// with plain stores: make them visible to wgmma (the async proxy), then
+// one thread arrives on `bar`
+__device__ __forceinline__ void fill_done(uint32_t bar, int t) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  group_sync(1, 128);
+  if (t == 0) mbar_arrive(bar);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaRegs<DP>::ctas)
+flash_mma_kernel(const __grid_constant__ MmaMaps maps, const Params p,
+                 int tma, int head_major) {
+  using L = MmaTile<DP>;
+  using R = MmaRegs<DP>;
+  constexpr int NS = L::stages;
+  constexpr int W = L::W;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  // barriers: Q (one a consumer), K full, V full and empty (one a stage)
+  const uint32_t bar_q = base, bar_k = base + 16, bar_v = bar_k + 8 * NS,
+                 bar_e = bar_v + 8 * NS;
+  const uint32_t tiles = base + 1024;  // Q0, Q1, then K and V a stage
+  auto q_smem = [&](int c) { return tiles + c * L::tile; };
+  auto k_smem = [&](int st) { return tiles + (2 + 2 * st) * L::tile; };
+  auto v_smem = [&](int st) { return tiles + (3 + 2 * st) * L::tile; };
+
+  const int tid = threadIdx.x;
+  // the CTA's (b * Hq + h, pair of q tiles 2 pair and 2 pair + 1): pair
+  // by pair over all heads, or head by head (the pairs of one head in a
+  // row, so that its K and V are read from L2); causal pairs last first
+  const unsigned pairs = (p.sq + 2 * kMmaBQ - 1) / (2 * kMmaBQ);
+  const unsigned heads = gridDim.x / pairs;
+  const unsigned bh = head_major ? blockIdx.x / pairs : blockIdx.x % heads;
+  const unsigned slot = head_major ? blockIdx.x % pairs : blockIdx.x / heads;
+  const int pair = static_cast<int>(p.causal ? pairs - 1 - slot : slot);
+  const int b = static_cast<int>(bh / p.hq);
+  const int h = static_cast<int>(bh % p.hq);
+  const int kvh = h / (p.hq / p.hkv);
+
+  // the kv tiles each consumer's q tile visits, and their union, which the
+  // producer loads; an empty range sits at the union's start
+  const int nk = (p.skv + kMmaBK - 1) / kMmaBK;
+  int lo[2], hi[2];
+  int ulo = nk, uhi = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int q_start = (2 * pair + c) * kMmaBQ;
+    lo[c] = hi[c] = 0;
+    if (q_start < p.sq) visited_range(p, p.q0 + q_start, nk, lo[c], hi[c]);
+    if (lo[c] < hi[c]) {
+      ulo = min(ulo, lo[c]);
+      uhi = max(uhi, hi[c]);
+    }
+  }
+  if (ulo >= uhi) ulo = uhi = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    if (lo[c] >= hi[c]) lo[c] = hi[c] = ulo;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q + 8, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, 8);  // a warp of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: Q once, then K and V of the union's kv tiles into the
+    // ring, each stage once both consumers have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R::producer));
+    const auto* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
+                    h * p.q_sh;
+    const auto* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb +
+                    kvh * p.k_sh;
+    const auto* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb +
+                    kvh * p.v_sh;
+    if (tma && tid != 0) return;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (lo[c] >= hi[c]) continue;  // no consumer waits for it
+      const int q_start = (2 * pair + c) * kMmaBQ;
+      if (tma) {
+        mbar_expect_tx(bar_q + 8 * c, L::tile);
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load(q_smem(c) + bx * L::box, &maps.q, bx * W, q_start, h, b,
+                   bar_q + 8 * c);
+      } else {
+        fill_tile<DP>(q_smem(c), q, p.q_ss, q_start, p.sq, p.d, tid);
+        fill_done(bar_q + 8 * c, tid);
+      }
+    }
+    int st = 0;
+    uint32_t ph = 0;
+    for (int i = ulo; i < uhi; ++i) {
+      if (i - ulo >= NS) mbar_wait(bar_e + 8 * st, ph ^ 1);
+      if (tma) {
+        mbar_expect_tx(bar_k + 8 * st, L::tile);
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load(k_smem(st) + bx * L::box, &maps.k, bx * W, i * kMmaBK,
+                   kvh, b, bar_k + 8 * st);
+        mbar_expect_tx(bar_v + 8 * st, L::tile);
+        for (int bx = 0; bx < L::NB; ++bx)
+          tma_load(v_smem(st) + bx * L::box, &maps.v, bx * W, i * kMmaBK,
+                   kvh, b, bar_v + 8 * st);
+      } else {
+        fill_tile<DP>(k_smem(st), k, p.k_ss, i * kMmaBK, p.skv, p.d, tid);
+        fill_done(bar_k + 8 * st, tid);
+        fill_tile<DP>(v_smem(st), v, p.v_ss, i * kMmaBK, p.skv, p.d, tid);
+        fill_done(bar_v + 8 * st, tid);
+      }
+      if (++st == NS) st = 0, ph ^= 1;
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c + 1 owns q tile 2 pair + c
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R::consumer));
+  const int c = tid / 128 - 1;
+  const int lane = tid % 32;
+  const int row = (tid % 128) / 32 * 16 + lane / 4;  // the thread's first row
+  const int t4 = lane % 4;
+  const int my_lo = c ? lo[1] : lo[0], my_hi = c ? hi[1] : hi[0];
+  const int q_start = (2 * pair + c) * kMmaBQ;
+  const int qlo = p.q0 + q_start;  // position of the tile's first row
+  const float scale2 = p.scale * kLog2e;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+  // rows row and row + 8: the running max (log2 units) and this thread's
+  // part of the running sum (the quad's four parts are added at the end)
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_part[2] = {0.f, 0.f};
+  float s[32];
+  uint32_t pa[4][4];
+  float corr[2];
+
+  // the ring's read position: stage and the parity of its fill
+  int st = 0;
+  uint32_t ph = 0;
+  auto release = [&](int stage) {
+    if (lane == 0) mbar_arrive(bar_e + 8 * stage);
+  };
+  auto advance = [&]() {
+    if (++st == NS) st = 0, ph ^= 1;
+  };
+  // a kv tile the union loads and this tile does not visit: released once
+  // it has arrived, so that the ring's phases stay in step
+  auto skip = [&]() {
+    mbar_wait(bar_k + 8 * st, ph);
+    mbar_wait(bar_v + 8 * st, ph);
+    release(st);
+    advance();
+  };
+  for (int i = ulo; i < my_lo; ++i) skip();
+  if (my_lo < my_hi) {
+    const uint32_t qs = q_smem(c);
+    mbar_wait(bar_q + 8 * c, 0);
+    // a tile: S = Q K^T, its softmax, then O = O corr + P V; the other
+    // consumer's products run while this one's softmax does
+    for (int i = my_lo; i < my_hi; ++i) {
+      mbar_wait(bar_k + 8 * st, ph);
+      reg_fence(s);
+      wg_fence();
+      qk_product<DP>(s, qs, k_smem(st));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      softmax_mma(p, s, m_run, l_part, corr, i, qlo, row, t4, scale2);
+      p_fragment(s, pa);
+      rescale(o, corr);
+      mbar_wait(bar_v + 8 * st, ph);
+      reg_fence(o);
+      reg_fence(pa);
+      wg_fence();
+      pv_product<DP>(o, pa, v_smem(st));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(o);
+      reg_fence(pa);
+      release(st);
+      advance();
+    }
+  }
+  // tiles past this q tile's range whose stages a later load reuses
+  for (int i = my_hi; i + NS < uhi; ++i) skip();
+
+  // out = O / max(l, 1e-30), rows < Sq, columns < d
+  auto* out = static_cast<__nv_bfloat16*>(p.o) +
+              static_cast<int64_t>(bh) * p.sq * p.d;
+  const bool even = (p.d % 2) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_part[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int r = q_start + row + 8 * i;
+    if (r >= p.sq) continue;
+    __nv_bfloat16* orow = out + static_cast<int64_t>(r) * p.d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * t4;
+      const float x0 = o[4 * j + 2 * i] * inv;
+      const float x1 = o[4 * j + 2 * i + 1] * inv;
+      if (even && col + 1 < p.d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < p.d) orow[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < p.d) orow[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (so that the library
+// need not link libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor maps of one call; false where TMA cannot describe a view (the
+// kernel then loads by plain loads)
+template <int DP>
+bool encode_maps(MmaMaps* m, const Params& p, int batch) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  auto one = [&](CUtensorMap* map, const void* ptr, int s, int h,
+                 int64_t ss, int64_t sh, int64_t sb) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.d),
+                                static_cast<cuuint64_t>(s),
+                                static_cast<cuuint64_t>(h),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                   static_cast<cuuint64_t>(sh) * 2,
+                                   static_cast<cuuint64_t>(sb) * 2};
+    const cuuint32_t box[4] = {MmaTile<DP>::W, kMmaBK, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  MmaTile<DP>::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  return one(&m->q, p.q, p.sq, p.hq, p.q_ss, p.q_sh, p.q_sb) &&
+         one(&m->k, p.k, p.skv, p.hkv, p.k_ss, p.k_sh, p.k_sb) &&
+         one(&m->v, p.v, p.skv, p.hkv, p.v_ss, p.v_sh, p.v_sb);
+}
+
+template <int DP>
+int launch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
+  using L = MmaTile<DP>;
+  auto kernel = flash_mma_kernel<DP>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int64_t ctas = static_cast<int64_t>(batch) * p.hq *
+                       ((p.sq + 2 * kMmaBQ - 1) / (2 * kMmaBQ));
+  if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  MmaMaps maps;
+  memset(&maps, 0, sizeof maps);
+  const int tma = vec && encode_maps<DP>(&maps, p, batch) ? 1 : 0;
+  // head by head where K and V of all heads would not stay in half the L2
+  // (deepseek-v2's MLA: 201 MB), else pair by pair, the longest first
+  static const int l2_bytes = [] {
+    int dev = 0, bytes = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrL2CacheSize, dev);
+    return bytes;
+  }();
+  const int64_t kv_bytes = 4LL * batch * p.hkv * p.skv * p.d;
+  const int head_major = 2 * kv_bytes > l2_bytes ? 1 : 0;
+  kernel<<<static_cast<unsigned>(ctas), kMmaThreads, L::bytes, stream>>>(
+      maps, p, tma, head_major);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_mma(const Params& p, int batch, int vec, cudaStream_t stream) {
+  if (p.d <= 32) return launch_mma<32>(p, batch, vec, stream);
+  if (p.d <= 64) return launch_mma<64>(p, batch, vec, stream);
+  if (p.d <= 96) return launch_mma<96>(p, batch, vec, stream);
+  if (p.d <= 128) return launch_mma<128>(p, batch, vec, stream);
+  if (p.d <= 192) return launch_mma<192>(p, batch, vec, stream);
+  if (p.d <= 256) return launch_mma<256>(p, batch, vec, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // C interface (bound with ctypes), one entry point a route. Each launches
@@ -1116,7 +1594,8 @@ int flash_attention_mma(FLASH_ARGS) {
                    has_window, window, has_cap, cap, has_kv_len, kv_len, q0,
                    scale, stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte rows and bases: the asynchronous copy; else plain loads
+  // 16-byte rows and bases: TMA, where cuTensorMapEncodeTiled takes the
+  // views; else the producer's plain loads
   const int64_t strides[] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                              v_sb, v_sh, v_ss};
   bool vec = d % 8 == 0;

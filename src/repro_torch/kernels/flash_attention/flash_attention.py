@@ -15,7 +15,9 @@ which one ran; :func:`flash_route` picks one from the dtype, and nothing
 falls back from one to the other:
 
 - ``flash_attention_mma``: bfloat16 at any D <= 256, QK^T and P.V on the
-  tensor cores (``mma.sync``, float32 accumulators);
+  tensor cores (``wgmma`` from TMA-fed shared memory, float32
+  accumulators; a view TMA cannot describe is copied by the kernel's own
+  loads);
 - ``flash_attention``: float32 at any D <= 256, on the CUDA cores (full
   float32 FMAs, no TF32).
 """

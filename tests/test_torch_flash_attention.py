@@ -198,22 +198,24 @@ def _smoke():
     return smoke
 
 
-#: an ``-Xptxas -v`` build log in the form nvcc prints it
-PTXAS_LOG = """\
-ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi192EEEvNS_6ParamsEi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_mma_kernelILi192EEEvNS_6ParamsEi
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 239 registers, used 1 barriers, 480 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_mma_kernelILi96EEEvNS_6ParamsEi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_mma_kernelILi96EEEvNS_6ParamsEi
-    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
-ptxas info    : Used 168 registers, used 1 barriers, 480 bytes cmem[0]
+#: an ``-Xptxas -v`` build log in the form nvcc prints it: the
+#: tensor-core kernel's six instances (DP = 96 with 24 bytes spilled, DP =
+#: 256 with its wgmma serialized) and an earlier source's CUDA-core kernel
+MMA = "_ZN12_GLOBAL__N_116flash_mma_kernelILi{}EEEvNS_7MmaMapsENS_6ParamsEi"
+PTXAS_LOG = "".join(f"""\
+ptxas info    : Compiling entry function '{MMA.format(dp)}' for 'sm_90a'
+ptxas info    : Function properties for {MMA.format(dp)}
+    {24 * (dp == 96)} bytes stack frame, {24 * (dp == 96)} bytes spill stores, {24 * (dp == 96)} bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+""" for dp in (32, 64, 96, 128, 192, 256)) + f"""\
+ptxas info    : (C7513) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions defining input registers of a wgmma between start and end of the pipeline stage in the function '{MMA.format(256)}'
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelILi64ELi64ELi64EEEvNS_6ParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelILi64ELi64ELi64EEEvNS_6ParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 2048 bytes smem, 480 bytes cmem[0]
 """
+SERIALIZED = ("non wgmma instructions defining input registers of a wgmma "
+              "between start and end of the pipeline stage")
 #: the same log's lines for the CUDA-core kernel's instances, one a padded
 #: head dim (DP = 192 with 8 bytes spilled)
 F32_LOG = "".join(f"""\
@@ -236,28 +238,57 @@ def test_ptxas_report_reads_each_instance_of_the_named_kernels():
         stack_bytes=8 * (dp == 192), spill_store_bytes=8 * (dp == 192),
         spill_load_bytes=8 * (dp == 192), registers=64 + dp // 2,
         static_smem_bytes=0) for dp in smoke.FLASH_F32_DPS}
+    mma = {f"flash_mma_kernelILi{dp}E": dict(
+        stack_bytes=24 * (dp == 96), spill_store_bytes=24 * (dp == 96),
+        spill_load_bytes=24 * (dp == 96), registers=168,
+        static_smem_bytes=0) for dp in smoke.FLASH_MMA_DPS}
+    mma["flash_mma_kernelILi256E"]["wgmma_serialized"] = SERIALIZED
     assert rep == {
-        "flash_mma_kernelILi192E": dict(
-            stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
-            registers=239, static_smem_bytes=0),
-        "flash_mma_kernelILi96E": dict(
-            stack_bytes=24, spill_store_bytes=24, spill_load_bytes=24,
-            registers=168, static_smem_bytes=0),
+        **mma,
         # an earlier source's instance, as tools/flash_variants.py reads a
         # parent's build log
         "flash_kernelILi64ELi64ELi64E": dict(
             stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
             registers=128, static_smem_bytes=2048),
         **f32}
-    assert set(smoke.PTXAS_GATED_INSTANCES) == {"flash_mma_kernelILi192E",
-                                                *f32}
+    assert set(smoke.PTXAS_GATED_INSTANCES) == {*mma, *f32}
     assert "flash_kernel" in smoke.PTXAS_KERNELS
     gated = {fn: rep[fn] for fn in smoke.PTXAS_GATED_INSTANCES}
     assert [fn for fn, r in gated.items() if r["spill_store_bytes"]] == [
-        "flash_kernelILi192E"]
+        "flash_mma_kernelILi96E", "flash_kernelILi192E"]
+    assert [fn for fn, r in gated.items() if "wgmma_serialized" in r] == [
+        "flash_mma_kernelILi256E"]
     assert set(smoke.ptxas_report(PTXAS_LOG + F32_LOG, (
-        "flash_mma_kernel",))) == {"flash_mma_kernelILi192E",
-                                   "flash_mma_kernelILi96E"}
+        "flash_mma_kernel",))) == set(mma)
+
+
+def test_ptxas_report_reads_the_wgmma_serialization_notice():
+    """ptxas names the function it serialized: the notice is read into that
+    instance's report wherever it stands in the log, and one without a name
+    goes to the instance being compiled; a notice of a kernel that is not
+    asked for is dropped."""
+    smoke = _smoke()
+    note = ("ptxas info    : (C7510) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to "
+            "insufficient register resources for the wgmma pipeline")
+    before = f"{note} in the function '{MMA.format(64)}'\n"
+    unnamed = f"{note}\n"
+    other = (f"{note} in the function "
+             f"'_ZN12_GLOBAL__N_111wkv_kernelILi64EEEvv'\n")
+    rep = smoke.ptxas_report(before + other + PTXAS_LOG.replace(
+        "ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes "
+        "cmem[0]\nptxas info    : Compiling entry function '"
+        + MMA.format(128), "ptxas info    : Used 168 registers, used 1 "
+        "barriers, 1024 bytes cmem[0]\n" + unnamed + "ptxas info    : "
+        "Compiling entry function '" + MMA.format(128)),
+        ("flash_mma_kernel",))
+    reason = "insufficient register resources for the wgmma pipeline"
+    assert {fn: r["wgmma_serialized"] for fn, r in rep.items()
+            if "wgmma_serialized" in r} == {
+        "flash_mma_kernelILi64E": reason,
+        "flash_mma_kernelILi96E": reason,
+        "flash_mma_kernelILi256E": SERIALIZED}
+    assert rep["flash_mma_kernelILi64E"]["registers"] == 168
 
 
 def test_kernels_line_counts_launches_only_of_served_models():
@@ -267,15 +298,27 @@ def test_kernels_line_counts_launches_only_of_served_models():
     smoke = _smoke()
     served = {"deepseek_v2_236b": {"prefill_launches": {
         "flash_attention_mma": 4}}}
-    row = dict(arch="deepseek_v2_236b", route="flash_attention_mma")
+    row = dict(arch="deepseek_v2_236b", what="attention",
+               route="flash_attention_mma")
     assert smoke._by_shape_row(row, "flash_attention_mma", served) == dict(
         row, served=True, launches_a_prefill=4)
     assert smoke._by_shape_row(row, "flash_attention", served)[
         "launches_a_prefill"] == 0
-    gemma = dict(arch="gemma2_2b", route="flash_attention_mma")
+    gemma = dict(arch="gemma2_2b", what="attention",
+                 route="flash_attention_mma")
     assert smoke._by_shape_row(gemma, "flash_attention_mma", served) == dict(
         gemma, served=False, launches_a_prefill=None)
     assert any(r[0] == "gemma2_2b" for r in smoke.FLASH_MODEL_SHAPES)
+    # the train shape is timed beside the prefills, with no prefill count
+    arch, what = smoke.FLASH_TRAIN_SHAPE[:2]
+    train = dict(arch=arch, what=what, route="flash_attention_mma")
+    assert smoke.FLASH_TRAIN_SHAPE in smoke.FLASH_MODEL_SHAPES
+    assert smoke._by_shape_row(train, "flash_attention_mma", {arch: {
+        "prefill_launches": {"flash_attention_mma": 24}}}) == dict(
+        train, served=False, launches_a_prefill=None)
+    assert smoke.FLASH_TRAIN_SHAPE[2:8] == next(
+        (b, hq, hkv, s, s, d) for label, b, hq, hkv, s, d, *_
+        in smoke.GRAD_FLASH_CASES if label == "qwen2 train")
 
 
 def test_float32_timing_shapes_are_the_consistency_phase_calls(monkeypatch):
@@ -387,8 +430,15 @@ def test_flash_variants_finds_every_instance_of_both_routes():
     src = (root / "src/repro_torch/kernels/flash_attention/csrc/"
            "flash_attention.cu").read_text()
     mma, f32 = tool._instances(src)
-    assert sorted(mma) == sorted(f32) == list(_smoke().FLASH_F32_DPS)
+    assert sorted(mma) == list(_smoke().FLASH_MMA_DPS)
+    assert sorted(f32) == list(_smoke().FLASH_F32_DPS)
     assert all("F32Tile" in line and line.endswith("kF32Threads);")
                for line in f32.values())
+    assert all(f"flash_mma_kernel<{dp}>, MmaTile<{dp}>::bytes" in line
+               and line.endswith("kMmaThreads);")
+               for dp, line in mma.items())
     assert {row[0] for row in tool.SHAPES["float32"]} == {
         f"{r[0]} {r[1]}" for r in _smoke().FLASH_F32_SHAPES}
+    # in bf16 every shape chip_smoke.py times, the train shape included
+    assert {f"{r[0]} {r[1]}" for r in _smoke().FLASH_MODEL_SHAPES} <= {
+        row[0] for row in tool.SHAPES["bfloat16"]}

@@ -785,11 +785,35 @@ def test_flash_launches_are_counted_by_call_shape(cuda):
     (1, 4, 2, 130, 130, 64, True, 48, 50.0, None, 0),         # window, cap
     (1, 32, 32, 1024, 1024, 96, True, 512, 50.0, None, 0),
     (1, 4, 2, 33, 77, 40, False, None, 50.0, None, 0),        # D % 8 != 0
+    # every padded head dim, one instance each
+    (1, 4, 2, 256, 256, 32, True, None, None, None, 0),
+    (1, 4, 2, 256, 256, 64, True, None, None, None, 0),
+    (1, 4, 2, 256, 256, 96, True, None, None, None, 0),
+    (1, 4, 2, 256, 256, 128, True, None, None, None, 0),
+    (1, 4, 2, 256, 256, 192, True, None, None, None, 0),
+    (1, 4, 2, 256, 256, 256, True, None, None, None, 0),
+    # the CTA's second q tile partial (100, 200) or absent (65, 544)
+    (2, 4, 2, 65, 65, 64, True, None, None, None, 0),
+    (2, 4, 2, 100, 100, 128, False, None, None, None, 0),
+    (2, 4, 2, 200, 200, 192, True, None, None, None, 0),
+    (1, 8, 2, 544, 544, 64, True, None, None, None, 0),
+    # windows under which the two q tiles' kv ranges start apart
+    (1, 4, 2, 512, 512, 64, True, 100, None, None, 0),
+    (1, 4, 2, 512, 512, 192, True, 64, None, None, 0),
+    (1, 4, 2, 384, 384, 256, True, 130, 50.0, None, 0),
+    # kv_len, softcap and q0, with Skv not a multiple of 64
+    (2, 4, 2, 128, 400, 96, True, None, 30.0, 300, 272),
+    (1, 4, 2, 160, 333, 256, False, None, None, 200, 0),
+    (2, 8, 4, 300, 1000, 32, False, None, 50.0, None, 0),
 ])
 def test_flash_mma_route_equals_plain(cuda, b, hq, hkv, sq, skv, d, causal,
                                       window, cap, kv_len, q0):
     """The tensor-core route at bf16, inputs drawn at 1.5 so that 2e-2 lies
-    well below the outputs' mean magnitude."""
+    well below the outputs' mean magnitude: its CTA (a producer warpgroup
+    feeding K and V by TMA, two consumer warpgroups of one 64-row q tile
+    each) at every padded head dim, with a second q tile that is partial
+    or absent, windows under which the two tiles' kv ranges differ,
+    kv_len, softcap, q0 and ragged Skv."""
     g = torch.Generator("cpu").manual_seed(sq + d)
     q, k, v = ((torch.randn(sh, generator=g) * 1.5).to(cuda, torch.bfloat16)
                for sh in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
@@ -967,6 +991,28 @@ def test_flash_mma_wide_heads_equal_plain(cuda, d, b, hq, hkv, sq, skv,
                                rtol=2e-2)
     if v_cols:
         assert not got[..., v_cols:].any()
+
+
+@pytest.mark.parametrize("d,pad", [(37, 1), (75, 1), (64, 4), (192, 4)])
+def test_flash_mma_views_that_tma_cannot_describe(cuda, d, pad):
+    """An odd head dim, or k and v rows 2 (d + pad) bytes apart (a stride
+    that is not a multiple of 8 elements), go through the same kernel, the
+    producer warpgroup copying by plain loads: one ``flash_attention_mma``
+    launch each, within 2e-2 of the plain version."""
+    b, hq, hkv, sq, skv = 2, 4, 2, 130, 200
+    g = torch.Generator("cpu").manual_seed(d + pad)
+    q = (torch.randn(b, hq, sq, d, generator=g) * 1.5).to(cuda,
+                                                          torch.bfloat16)
+    k, v = ((torch.randn(b, hkv, skv, d + pad, generator=g) * 1.5).to(
+        cuda, torch.bfloat16)[..., :d] for _ in range(2))
+    assert k.stride(2) % 8 != 0 or d % 8 != 0
+    _build.launches.clear()
+    got = flash_attention_cuda(q, k, v, causal=True, cap=50.0)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_mma": 1}
+    want = flash_attention_ref(q, k, v, causal=True, cap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,

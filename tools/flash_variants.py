@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time builds of the port's flash-attention source against each other on
-one CUDA card, in turns. In bf16 (the default) at the wide-head shapes of
-the bf16 models (deepseek-v2's MLA at D = 192, gemma2 at D = 256, a D =
-160 head) and at three narrow ones (qwen2, olmoe, phi3); with ``--dtype
+one CUDA card, in turns. In bf16 (the default) at every shape of
+``chip_smoke.FLASH_MODEL_SHAPES`` (the bf16 prefills, gemma2's D = 256 and
+qwen2's train shape) and at three more (deepseek-v2's MLA at batch 1, a D
+= 160 head, phi3's D = 96); with ``--dtype
 float32`` at every float32 shape of ``chip_smoke.py``'s consistency phase
 (``chip_smoke.FLASH_F32_SHAPES``: qwen2, olmoe, deepseek-v2's MLA, zamba2
 and seamless, batch 1, S = 512-576).
@@ -27,10 +28,10 @@ everything to ``--out``.
     F=src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu
     V=chiprun_out/variants && mkdir -p $V
     git show <commit>:$F > $V/parent.cu
-    # two V stages at every DP: MmaTile's SV set to false
-    sed 's/smem_ctas(5 \\* tile) < 2 .*;/false;/' $F > $V/two_v.cu
+    # one CTA an SM at every DP: MmaRegs' ctas set to 1
+    sed 's/ctas = DP <= 64 ? 2 : 1;/ctas = 1;/' $F > $V/one_cta.cu
     python3 tools/flash_variants.py --out $V \\
-        parent:$V/parent.cu two_v:$V/two_v.cu one_v:$F
+        parent:$V/parent.cu one_cta:$V/one_cta.cu new:$F
     # the float32 route: the parent's CUDA-core kernel against this one
     python3 tools/flash_variants.py --dtype float32 --out $V \\
         parent:$V/parent.cu new:$F
@@ -62,13 +63,10 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 
 #: (label, b, hq, hkv, sq, skv, d, causal, columns of v that are not zero)
 SHAPES = {
-    "bfloat16": (
-        ("deepseek-v2 MLA", 4, 128, 128, 512, 512, 192, True, 128),
-        ("gemma2-2b", 4, 8, 4, 512, 512, 256, True, None),
+    "bfloat16": tuple((f"{arch} {what}", *shape)
+                      for arch, what, *shape in cs.FLASH_MODEL_SHAPES) + (
         ("MLA, batch 1", 1, 128, 128, 512, 512, 192, True, 128),
         ("D 160", 4, 32, 8, 512, 512, 160, True, None),
-        ("qwen2-0.5b", 8, 14, 2, 512, 512, 64, True, None),
-        ("olmoe-1b-7b", 4, 16, 16, 512, 512, 128, True, None),
         ("phi3-mini", 4, 32, 32, 512, 512, 96, True, None),
     ),
     "float32": tuple((f"{arch} {what}", *shape)
