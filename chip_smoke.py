@@ -55,11 +55,14 @@ plain version):
    models' shapes draw inputs large enough that each tolerance lies below
    the output's mean magnitude, which the phase checks; and the result is
    the same bit for bit whatever ``bq``/``bk`` (float32 and bf16).
-   ``wkv``: the four ``test_wkv_sweep`` cases, decay at the -4.25 clamp,
-   and rwkv6-7b's shape (4, 64, 512, 64) with bf16 r/k/v and float32 logw,
-   then in float32: ``o`` and the final state against the plain chunked
-   version, ``o`` against ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o``
-   at 2e-2). Every case runs through the route its dispatch picks
+   ``wkv``: the four ``test_wkv_sweep`` cases, decay at the -4.25 clamp
+   (16 x 16 heads, and 64 x 64 heads on the split route in float32 and
+   with bf16 r/k/v), rwkv6-7b's shape (4, 64, 512, 64) with bf16 r/k/v and
+   float32 logw, then in float32, and its training microbatch (2, 64,
+   1,024, 64) from a non-zero state: ``o`` and the final state against
+   the plain chunked version, a float32 ``o`` from a zero state against
+   ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o`` at 2e-2), and a second
+   call equal bit for bit. Every case runs through the route its dispatch picks
    (``flash_route``: bf16 at any D <= 256 on ``flash_attention_mma``,
    float32 on ``flash_attention``; ``wkv_route``: 64 x 64 heads in chunks of
    16 on ``wkv_split``, the rest on ``wkv``), and the phase checks that
@@ -162,11 +165,15 @@ plain version):
     main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
     timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
     tokens it would scan, and held there on ``o`` and the final state.
+    ``wkv_split`` is also timed at rwkv6-7b's prefill at B = 1 and 2, in
+    float32 at B = 4, and at the training microbatch from a non-zero
+    state, each with its bytes and float32-operations bounds.
     Then the registers, stack, spills and static shared memory of the
     redesigned kernels from the ptxas report of the build; gate: the
     lookup kernels (sharded, which the tiled routes launch at one shard,
-    and scalar), ``chunk_gather_byval`` and ``flash_mma_kernel`` at
-    DP = 192 (deepseek's MLA) have a 0-byte stack frame and no spills.
+    and scalar), ``chunk_gather_byval``, every instance of
+    ``flash_mma_kernel``, ``flash_kernel`` and ``wkv_split_kernel`` have a
+    0-byte stack frame and no spills, and no ``wgmma`` serialized.
 11. Training path. First the kernels' autograd ``Function``s at the train
     shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
     train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
@@ -377,6 +384,7 @@ from repro_torch.serverless import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12           # dense tensor-core peak, same sheet
 FP32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12           # dense tensor-core peak in TF32, same
 SOURCES = {
     "race_lookup_tiled_byval":
         "src/repro_torch/kernels/race_lookup/csrc/race_lookup.cu",
@@ -1678,16 +1686,26 @@ FLASH_CASES = (
     ("D 96 fp32", 1, 8, 4, 200, 200, 96, True, None, None, None, "float32",
      0.5),
 )
-#: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay)
+#: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay,
+#: from a non-zero state)
 WKV_CASES = (
-    ("sweep 1", 2, 3, 128, 16, 16, "float32", "float32", False),
-    ("sweep 2", 1, 2, 64, 32, 32, "float32", "float32", False),
-    ("sweep 3", 1, 1, 256, 64, 64, "float32", "float32", False),
-    ("sweep 4", 2, 2, 96, 16, 32, "float32", "float32", False),
-    ("strong decay -4.25", 1, 2, 64, 16, 16, "float32", "float32", True),
-    ("rwkv6-7b prefill", 4, 64, 512, 64, 64, "bfloat16", "float32", False),
-    ("rwkv6-7b prefill fp32", 4, 64, 512, 64, 64, "float32", "float32",
+    ("sweep 1", 2, 3, 128, 16, 16, "float32", "float32", False, False),
+    ("sweep 2", 1, 2, 64, 32, 32, "float32", "float32", False, False),
+    ("sweep 3", 1, 1, 256, 64, 64, "float32", "float32", False, False),
+    ("sweep 4", 2, 2, 96, 16, 32, "float32", "float32", False, False),
+    ("strong decay -4.25", 1, 2, 64, 16, 16, "float32", "float32", True,
      False),
+    # the clamp on the split route, whose TF32 operands meet e^{+-68}
+    ("strong decay -4.25, 64 x 64", 1, 2, 64, 64, 64, "float32", "float32",
+     True, False),
+    ("strong decay -4.25, 64 x 64 bf16", 1, 2, 64, 64, 64, "bfloat16",
+     "float32", True, False),
+    ("rwkv6-7b prefill", 4, 64, 512, 64, 64, "bfloat16", "float32", False,
+     False),
+    ("rwkv6-7b prefill fp32", 4, 64, 512, 64, 64, "float32", "float32",
+     False, False),
+    ("rwkv6-7b train microbatch", 2, 64, 1024, 64, 64, "bfloat16",
+     "float32", False, True),
 )
 
 
@@ -1769,16 +1787,23 @@ def model_kernel_parity(device) -> dict:
               f"flash_attention {dtype}: the result depends on bq/bk")
         _within(o1, flash_attention_ref(q, k, v), tol, tol,
                 f"flash_attention {dtype} block shapes")
-    for label, b, h, s, dk, dv, dtype, wdtype, strong in WKV_CASES:
+    for (label, b, h, s, dk, dv, dtype, wdtype, strong,
+         with_state) in WKV_CASES:
         r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dv, dtype,
                                        wdtype, strong)
+        s0 = (torch.randn((b, h, dk, dv), generator=gen, device=device)
+              * 0.5 if with_state else None)
         (o, state), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw,
-                                                            u))
+                                                            u, s0))
         check(route == wkv_route(dk, dv, min(16, s)),
               f"wkv {label} ran {route}")
         cases.setdefault(route, []).append(label)
+        again = wkv_cuda(r, k, v, logw, u, s0)
+        check(torch.equal(again[0], o) and torch.equal(again[1], state),
+              f"wkv {label}: two calls differ")
         zero = torch.zeros((b, h, dk, dv), device=device)
-        want_o, want_state = wkv_chunked_ref(r, k, v, logw, u, zero)
+        want_o, want_state = wkv_chunked_ref(r, k, v, logw, u,
+                                             zero if s0 is None else s0)
         check(o.dtype == r.dtype and state.dtype == torch.float32,
               f"wkv {label}: {o.dtype} / {state.dtype}")
         otol = 2e-2 if dtype == "bfloat16" else 5e-4
@@ -1786,7 +1811,7 @@ def model_kernel_parity(device) -> dict:
         e = max(_within(o, want_o, otol, rtol, f"wkv {label} o"),
                 _within(state, want_state, 5e-4, 1e-3,
                         f"wkv {label} final state"))
-        if dtype == "float32":
+        if dtype == "float32" and s0 is None:
             e = max(e, _within(o, wkv_sequential(r, k, v, logw, u), 5e-4,
                                1e-3, f"wkv {label} o vs wkv_sequential"))
         errs[route] = max(errs[route], e)
@@ -2215,8 +2240,8 @@ def _graphed(fn, device):
 
 
 #: the redesigned kernels, by entry point: ptxas must give each a 0-byte
-#: stack frame and no spills (the flash and WKV kernels are reported only)
-#: (the tiled routes launch the sharded kernels at one shard)
+#: stack frame and no spills (the tiled routes launch the sharded kernels
+#: at one shard)
 PTXAS_GATED = {"race_lookup_sharded_byval": "race_lookup_sharded_byval_kernel",
                "race_lookup_sharded": "race_lookup_sharded_kernel",
                "race_lookup_tiled_byval": "race_lookup_sharded_byval_kernel",
@@ -2229,13 +2254,24 @@ FLASH_F32_DPS = (32, 64, 96, 128, 192, 256)
 #: the padded head dims of the tensor-core flash kernel, one instance each
 #: (the same six)
 FLASH_MMA_DPS = FLASH_F32_DPS
+#: the split WKV kernel's instances, one a (dtype of r/k/v, dtype of logw)
+#: pair: float/float, bf16/float, bf16/bf16, float/bf16
+WKV_SPLIT_INSTANCES = tuple(f"wkv_split_kernelI{t}" for t in (
+    "ff", "13__nv_bfloat16f", "13__nv_bfloat16S1_", "f13__nv_bfloat16"))
+#: the registers a thread of each of them must start with: its setmaxnreg
+#: split (kPrepRegs = 64 for 256 prep threads, kStateRegs = 112 for 128
+#: state threads in wkv.cu) redistributes 384 x 80; with fewer,
+#: setmaxnreg.inc would wait for registers that never come free
+WKV_SPLIT_REGISTERS = 80
 #: compiled instances gated the same way, by the name ``ptxas_report`` gives
 #: them: every instance of the tensor-core flash kernel (bf16), which ptxas
-#: must also not report as running its wgmma serialized, and every instance
-#: of the CUDA-core one (float32)
+#: must also not report as running its wgmma serialized, every instance of
+#: the CUDA-core one (float32), and every instance of the split WKV kernel,
+#: which must also have ``WKV_SPLIT_REGISTERS``
 PTXAS_GATED_INSTANCES = (*(f"flash_mma_kernelILi{dp}E"
                            for dp in FLASH_MMA_DPS),
-                         *(f"flash_kernelILi{dp}E" for dp in FLASH_F32_DPS))
+                         *(f"flash_kernelILi{dp}E" for dp in FLASH_F32_DPS),
+                         *WKV_SPLIT_INSTANCES)
 
 
 #: the libraries whose kernels ``ptxas_phase`` reports, and those kernels
@@ -2319,6 +2355,42 @@ def _wkv_work(r, k, v, logw, u, state, o, c):
                  + 2 * c * dk * dv + dk * dv         # state update
                  + 6 * c * dk)                       # decay factors
     return nbytes, per_chunk * b * h * (s // c)
+
+
+#: (label, B, S, dtype of r/k/v, from a non-zero state): the shapes at
+#: which ``measure_model_kernels`` times ``wkv_split`` (H = 64, 64 x 64
+#: heads): rwkv6-7b's prefill by batch, in float32, its training microbatch
+WKV_SPLIT_SHAPES = (("prefill, B = 1", 1, 512, "bfloat16", False),
+                    ("prefill, B = 2", 2, 512, "bfloat16", False),
+                    ("prefill, B = 4", 4, 512, "bfloat16", False),
+                    ("prefill, B = 4, float32", 4, 512, "float32", False),
+                    ("train microbatch", 2, 1024, "bfloat16", True))
+
+
+def _wkv_split_bounds(r, k, v, logw, u, state_in, o, state_out) -> dict:
+    """The bound of one WKV scan on the units the split route runs it on:
+    the larger of the bytes (the initial state read where one is given)
+    over 3.35 TB/s and the operations, ``ops_ms``. Of these the four
+    products (the scores, att v, r_dec S, k_fin^T v) run on the tensor
+    cores as three TF32 passes, at 495 / 3 TFLOP/s, and the rest (decay
+    factors, bonus, the state's scale) on the CUDA cores at 67 TFLOP/s,
+    beside them: ``ops_ms`` is the larger of the two. ``fp32_ops_ms``, every
+    operation at 67 TFLOP/s, is shown for reference only."""
+    c = 16
+    nbytes, flops = _wkv_work(r, k, v, logw, u, state_out, o, c)
+    if state_in is not None:
+        nbytes += state_in.numel() * state_in.element_size()
+    b, h, s, dk = r.shape
+    dv, pairs = v.shape[-1], c * (c - 1) // 2
+    products = (4 * c * dk * dv + 2 * pairs * (dk + dv)) * b * h * (s // c)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = max(products / (TF32_FLOP_PER_S / 3),
+                 (flops - products) / FP32_FLOP_PER_S)
+    return dict(bytes=nbytes, flops=flops, product_flops=products,
+                bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_ms=by_bytes * 1e3, ops_ms=by_ops * 1e3,
+                fp32_ops_ms=flops / FP32_FLOP_PER_S * 1e3)
 
 
 def _bound(nbytes, flops, peak):
@@ -2600,23 +2672,44 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
     split = lambda: wkv_cuda(r, k, v, logw, u)       # noqa: E731
     turns = [device_ms(f, 20, device) for f in
              (split, lambda: wkv_cuda(*contig, u), split)]
-    # how the time grows with the batch (B x H x 2 CTAs): flat while the
-    # card has room, linear once the SMs are full
-    batch_ms = {}
-    for bb in (1, 2):
-        views = _wkv_views(gen, device, bb, h, s, dk)
-        batch_ms[bb] = device_ms(lambda: wkv_cuda(*views), 20, device)
-    batch_ms[b] = turns[0]
+    # the batch (B x H CTAs of one head each: one SM a head at B <= 2, one
+    # wave of two CTAs an SM at B = 4), float32, and the training
+    # microbatch from a non-zero state, each with its bounds
+    by_shape = []
+    for label, bb, ss, dtype, with_state in WKV_SPLIT_SHAPES:
+        views = _wkv_views(gen, device, bb, h, ss, dk, dtype)
+        s0 = (torch.randn((bb, h, dk, dk), generator=gen, device=device)
+              * 0.5 if with_state else None)
+        got = wkv_cuda(*views, s0)
+        ms = (turns[0] if (bb, ss, dtype, with_state) == (b, s, "bfloat16",
+                                                           False)
+              else device_ms(lambda: wkv_cuda(*views, s0), 20, device))
+        by_shape.append(dict(label=label, batch=bb,
+                             shape=f"r/k/v ({bb}, {h}, {ss}, "
+                             f"{dk}) {dtype} views, logw float32"
+                             + (", from a non-zero state" if with_state
+                                else ""),
+                             ms=ms, **_wkv_split_bounds(*views, s0, *got)))
+        del views, s0, got
+    for row in by_shape:
+        print(f"time wkv_split at {row['shape']}: {row['ms']:.6f} ms, "
+              f"{row['ms'] / row['bound_ms']:.3f} x its bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {row['bytes']} B"
+              f" take {row['bytes_ms']:.6f} ms; {row['flops']} FLOP take "
+              f"{row['ops_ms']:.6f} ms with the {row['product_flops']} of "
+              f"the products as split TF32, {row['fp32_ops_ms']:.6f} ms all "
+              f"on the CUDA cores)")
     out["wkv_split"] = dict(
         shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16 head-transposed views, "
               f"logw float32, chunk {c}", route=route, ms=turns[0],
-        ms_turns=turns[0::2], contiguous_ms=turns[1], ms_by_batch=batch_ms,
+        ms_turns=turns[0::2], contiguous_ms=turns[1],
+        timed_shapes=by_shape,
         plain_ms=device_ms(_graphed(
             lambda: wkv_chunked_ref(r, k, v, logw, u, zero), device), 4,
             device),
-        library_ms=None, library="none", ctas=b * h * 2,
+        library_ms=None, library="none", ctas=b * h,
         sms=torch.cuda.get_device_properties(device).multi_processor_count,
-        **_bound(*_wkv_work(r, k, v, logw, u, st, o, c), FP32_FLOP_PER_S))
+        **_wkv_split_bounds(r, k, v, logw, u, None, o, st))
     del r, k, v, logw, o, st, contig, want_o, want_st
 
     # wkv (one CTA a head, on no main-path run) at rwkv6-7b's heads over an
@@ -2651,21 +2744,28 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
               f"{lib}"
               + "".join(f"; {key} {m[key]}" for key in (
                   "ms_turns", "library_ms_turns", "contiguous_ms",
-                  "ms_by_batch", "ctas", "sms") if key in m))
+                  "bytes_ms", "ops_ms", "fp32_ops_ms", "ctas", "sms")
+                  if key in m))
     return out
 
 
 def ptxas_phase() -> dict:
     """Print the ptxas report of every redesigned kernel; fail unless each
     gated one (``PTXAS_GATED``, ``PTXAS_GATED_INSTANCES``) has a 0-byte
-    stack frame, no spills and no serialized wgmma. Returns the report by
-    entry point."""
+    stack frame, no spills and no serialized wgmma, and each split WKV
+    instance ``WKV_SPLIT_REGISTERS``. Returns the report by entry point."""
     ptxas = {}
     for lib in PTXAS_LIBRARIES:
         ptxas.update(ptxas_report(
             _build.library_path(lib).with_suffix(".log").read_text()))
     for fn, rep in ptxas.items():
         print(f"ptxas {fn}: {rep}")
+    return ptxas_gate(ptxas)
+
+
+def ptxas_gate(ptxas: dict) -> dict:
+    """``ptxas_phase``'s gate on the reports ``ptxas_report`` read, by
+    instance; returns them by entry point."""
     by_entry = {"flash_attention_mma": "flash_mma_kernel",
                 "flash_attention": "flash_kernel",
                 "wkv_split": "wkv_split_kernel", **PTXAS_GATED}
@@ -2679,6 +2779,10 @@ def ptxas_phase() -> dict:
     for fn in PTXAS_GATED_INSTANCES:
         check(fn in ptxas, f"ptxas: no report of {fn}")
         gated[fn] = ptxas[fn]
+    for fn in WKV_SPLIT_INSTANCES:
+        check(ptxas[fn].get("registers") == WKV_SPLIT_REGISTERS,
+              f"ptxas {fn}: {ptxas[fn].get('registers')} registers, not the "
+              f"{WKV_SPLIT_REGISTERS} its setmaxnreg split redistributes")
     for fn, rep in gated.items():
         check(rep.get("stack_bytes") == 0
               and rep.get("spill_store_bytes") == 0
@@ -3023,8 +3127,7 @@ def train_kernel_grads(device) -> dict:
         ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u, state), 10, device),
         backward_wall_ms=_wall_ms(backward, device),
         backward_ms=profile_busy(backward, device, "")["busy_ms"],
-        **_bound(*_wkv_work(r, k, v, logw, u, state, got_o[0], 16),
-                 FP32_FLOP_PER_S))]
+        **_wkv_split_bounds(r, k, v, logw, u, state, *got_o))]
     for route, rows in out.items():
         for row in rows:
             print(f"grad {route} {row['shape']}: forward max abs err "
@@ -4108,6 +4211,9 @@ def main(argv) -> int:
           "torch.backends.cudnn.allow_tf32 = False (float32 products in "
           "full float32)")
     build_kernels()
+    # before any launch: a split WKV instance without the registers its
+    # setmaxnreg split needs would hang the card, not fail
+    ptxas = ptxas_phase()
     errs = kernel_parity(device)
     errs.update(stage_parity(device))
     errs.update(model_kernel_parity(device))
@@ -4139,7 +4245,6 @@ def main(argv) -> int:
     f32_rows = model_times["flash_attention"]["by_shape"]
     errs["flash_attention"] = max([errs["flash_attention"]]
                                   + [r["max_abs_err"] for r in f32_rows])
-    ptxas = ptxas_phase()
     grads, training, recompute, elastic = train_phase()
     for route, rows in grads.items():
         errs[route] = max([errs[route]] + [r["max_abs_err"] for r in rows])
@@ -4251,7 +4356,8 @@ def main(argv) -> int:
                              key: r[key] for key in (
                                  "ms_turns", "library_ms_turns",
                                  "plain_ms_turns", "contiguous_ms",
-                                 "ms_by_batch")
+                                 "timed_shapes", "bytes_ms", "ops_ms",
+                                 "fp32_ops_ms")
                              if key in r},
                          **model_runs[name])
         elif name in gather:

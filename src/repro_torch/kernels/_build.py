@@ -88,6 +88,23 @@ def build_all(names=None) -> dict[str, str]:
             for name in names}
 
 
+def build_copy(name: str, source: str, out_dir: Path):
+    """Compile ``source``, the text of a copy of one of the port's ``.cu``
+    files, with the port's flags into ``out_dir/<name>.so``, beside the
+    ``.cu`` and its ``-Xptxas -v`` log (the tools that time copies of a
+    kernel against each other). Returns (the loaded library, the log);
+    raises ``RuntimeError`` with the compiler's output when nvcc fails."""
+    cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+    cu.write_text(source)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    (out_dir / f"{name}.log").write_text(log)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{log}")
+    return ctypes.CDLL(str(so)), log
+
+
 def library(name: str, signatures: dict) -> ctypes.CDLL:
     """Load (building first if needed) the library ``name`` and declare its
     entry points: ``signatures`` maps each symbol to its ``argtypes``; every

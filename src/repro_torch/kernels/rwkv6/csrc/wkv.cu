@@ -20,49 +20,78 @@
 // C = 16: that is only safe in float32 and with C <= 16, so the kernel keeps
 // both.
 //
-// What bounds it on this card: at rwkv6-7b's prefill shape (B = 4, H = 64,
-// S = 512, 64 x 64 heads) the scan does ~2.5 GFLOP in float32 and moves
-// ~105 MB, so the bound is the float32 CUDA-core peak (~38 us at
-// 67 TFLOP/s) with the bytes (~31 us at 3.35 TB/s) close behind. The
-// recurrence is sequential over S / C chunks, so what holds a kernel back
-// in practice is parallelism and the latency of each chunk's steps. Both
-// routes keep the state out of HBM for the whole scan (the TPU kernel:
-// VMEM across a sequential grid axis) and write it once, at the end.
-//
 // Two routes, each its own C entry point, chosen by shape:
 //
-// wkv_split (dk = dv = 64, C = 16: rwkv6-7b's heads). The state's dv
-// columns are independent, so a grid of (B*H, dv / 32) CTAs (512 at B = 4:
-// one wave of four CTAs an SM) each owns 32 columns of one head's state,
-// in registers (sixteen values a thread), and recomputes the chunk's decay
-// factors and scores. That work is repeated in each CTA of a head, so the
-// split is as coarse as fills the card: 16 columns (1,024 CTAs, two waves)
-// measured slower. Shapes are compile-time constants, so every loop
-// unrolls. Each chunk is three block barriers: (1) the chunk's r, k, logw
-// and v columns are in shared memory (16-byte cp.async, issued one chunk
-// ahead so the copy overlaps the previous chunk's work); the cumulative
-// log-decay of a column is two neighbouring lanes' running sums joined by
-// one shuffle; (2) the strictly-lower scores, with the bonus sum_j r u k
-// on the diagonal, eight lanes a row joined by a reduce-scatter of
-// shuffles; (3) the output (four independent accumulators a value against
-// a transposed copy of the state in shared memory) and the state update
-// (sixteen independent accumulators a thread). Rows of the shared arrays
-// are padded or assigned to lanes so that the vector loads of a warp hit
-// distinct banks; the decay factors are exponentials in base 2 (exp2f,
-// 2 ulp), with k e^{L_C - Lx} taken as (k e^{-Lx}) e^{L_C}, both factors
-// inside float32's range since L_C >= -68. r, k, v and logw are read
-// through their strides, so the model's head-transposed views go in
-// without copies.
+// wkv_split (dk = dv = 64, C = 16: rwkv6-7b's heads; any S that is a
+// multiple of 16; r, k, v and logw read through their strides, so the
+// model's head-transposed views go in without copies).
+//
+// What bounds it on this card: at rwkv6-7b's prefill shape (B = 4, H = 64,
+// S = 512, bf16 r/k/v, float32 logw) the scan moves 104,873,984 bytes
+// (0.0313 ms at 3.35 TB/s) and does 2,533,359,616 float32 operations. Of
+// these the products, 2,399,141,888, take 0.0145 ms as three TF32 passes
+// on the tensor cores' 495 TFLOP/s, and the rest 0.0020 ms on the CUDA
+// cores' 67 TFLOP/s (all of them there: 0.0378 ms). With the products on
+// the tensor cores the bytes bound it. The state (16 KB a head) outweighs
+// a chunk's input (~10 KB), so it never leaves the chip: the recurrence
+// walks S / 16 chunks in order inside one CTA a head, and what the design
+// shortens is each chunk's step on that sequential path, and the
+// instructions a chunk costs the SM. Measured on an NVIDIA H100 80GB HBM3
+// at 700 W: 0.0638 ms at that shape by chip_smoke.py, 2.04x the bytes
+// bound; the two-CTAs-a-head CUDA-core kernel this design replaced took
+// 0.2326 ms there, in turns with it in tools/wkv_variants.py.
+//
+// The design: one CTA of three warpgroups a head (B * H CTAs, two an SM:
+// 256 CTAs at B = 4 are one wave on 132 SMs; at B = 1, 64 SMs run one each,
+// each several times faster than the two CTAs a head of the kernel it
+// replaced, which repeated a head's prep in both). Joined by mbarrier rings
+// in shared memory:
+// - two prep warpgroups take turns by chunk and do everything that does
+//   not depend on the state, for chunks ahead of the state warps. Thread 0
+//   of each copies its group's next chunk of r, k, logw and v by TMA (4-d
+//   tensor maps of (d, s, h, b) with the views' own strides, boxes of
+//   64 x 16) into the group's raw stage as soon as the group has read it; a
+//   view that TMA cannot describe (a stride or a base not a multiple of 16
+//   bytes) is copied by the group's own loads into the same bytes. The
+//   group then computes the cumulative log-decay (each thread one column,
+//   summed down all 16 rows in base 2), r_dec = r e^{Lex}, k_inc =
+//   k e^{-Lx}, k_fin = k_inc e^{L_C} and e^{L_C} (one ex2 a factor), the
+//   bonus sum_j r u k (a reduce-scatter of shuffles), and the scores
+//   r_dec k_inc^T (each warp a quarter, mma.sync.m16n8k8), into one of 3
+//   prepared stages;
+// - the state warpgroup holds S^T as the 64 x 64 accumulator of wgmma, 16
+//   value columns a warp (32 registers a thread), and per chunk does only
+//   o^T = S^T r_dec^T + v^T att^T (mma.sync.m16n8k8; the two halves of the
+//   scores added, masked and given the bonus as they are read) and
+//   S^T = S^T e^{L_C} + v^T k_fin (wgmma.m64n64k8, k_fin written by the
+//   prep in the no-swizzle K-major layout that its descriptor names). The
+//   state's accumulator fragment is the A operand of the output's product
+//   as it is: every product permutes its depth (k-slot q holds depth 2q,
+//   k-slot q + 4 depth 2q + 1) in A and B alike.
+// setmaxnreg moves registers from the prep warps (64) to the state warps
+// (112), so that two CTAs of 384 threads fit an SM.
+// Every product (the scores, r_dec S, att v, k_fin^T v) runs in TF32 with
+// each operand split into a high and a low TF32 part (hi hi + hi lo +
+// lo hi, float32 accumulators): about float32's accuracy (each product
+// within ~2^-20 of float32's); one TF32 pass would round each operand to
+// 11 bits and misses the reference tolerance at the -4.25 decay clamp
+// (tests/test_torch_wkv.py). A bfloat16 v is exact in TF32, so att v and
+// k_fin^T v drop the pass of v's (zero) low part. Each thread's
+// accumulators are summed in one fixed order and no atomics are used, so
+// a view and its contiguous copy give the same bits. The arrays the
+// fragments read are padded so that each load hits 32 distinct banks.
 //
 // wkv (dk, dv <= 64 and C <= 16, every shape but wkv_split's): one CTA per
 // (b, h) walks the chunks with the (dk, dv) state and the chunk's tiles in
 // shared memory (~38 KB), every loop bound known only at run time, on
 // contiguous inputs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <initializer_list>
 
 namespace {
@@ -211,17 +240,39 @@ int launch(const void* r, const void* k, const void* v, const void* logw,
 }
 
 // ------------------------------ the split route: dk = dv = 64, chunk 16
-constexpr int kSplitThreads = 128;
-constexpr int kDK = 64;   // key width (dk)
-constexpr int kDV = 64;   // value width (dv)
-constexpr int kC = 16;    // chunk
-constexpr int kDVB = 32;  // state columns a CTA owns: dv / kDVB CTAs a head
-constexpr int kSplitMinBlocks = 4;  // CTAs an SM holds: <= 128 registers
-constexpr int kSP = kDK + 4;  // padded row stride (r_dec, the state copy)
+constexpr int kDK = 64;  // key width (dk)
+constexpr int kDV = 64;  // value width (dv)
+constexpr int kC = 16;   // chunk
+constexpr int kPrepGroups = 2;  // warpgroups of prep, taking turns by chunk
+constexpr int kPrepWarps = 4;   // a prep group's
+constexpr int kStateWarps = 4;
+constexpr int kPrepThreads = 32 * kPrepWarps;
+// two prep warpgroups (thread 0 of each the producer of its chunks) and a
+// state warpgroup
+constexpr int kSplitThreads = 32 * (kPrepGroups * kPrepWarps + kStateWarps);
+constexpr int kSplitCtas = 2;  // CTAs an SM
+// registers a thread after setmaxnreg: at two CTAs an SM a CTA's 384
+// threads start with 80, and 2 x 128 x 64 + 128 x 112 = 384 x 80
+constexpr int kPrepRegs = 64;
+constexpr int kStateRegs = 112;
+// stages of raw chunks (one a prep group's) and of prepared chunks: as many
+// as two CTAs an SM leave room for at float32 r/k/v
+constexpr int kNS = kPrepGroups;
+constexpr int kNP = 3;
+// row strides (floats) of the prepared arrays, chosen so that every
+// fragment load below hits 32 distinct banks: r_dec and k_inc are read as
+// float2 (8 rows x 4 lanes a half-warp), v as one float (4 rows x 8 lanes a
+// warp), att as float2
+constexpr int kRS = kDK + 8;
+constexpr int kKS = kDV + 4;
+constexpr int kAS = kC + 8;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kSplitThreads == 2 * kDK && kSplitThreads == 8 * kC &&
-                  kDVB % 8 == 0 && (kDVB / 2) % 4 == 0,
-              "the thread roles below assume these shapes");
+static_assert(kStateWarps * 16 == kDV && kPrepThreads == 2 * kDK &&
+                  kDK == 64 && kC == 16 && kNS % kPrepGroups == 0 &&
+                  kPrepRegs * kPrepGroups * kPrepThreads +
+                          kStateRegs * 32 * kStateWarps <=
+                      65536 / kSplitCtas,
+              "the warp roles below assume these shapes");
 
 struct SplitParams {
   const void* r;
@@ -238,72 +289,182 @@ struct SplitParams {
   int H, S;
 };
 
-// one chunk's inputs as they lie in HBM (the CTA's 16 columns of v)
-template <typename T, typename TW>
-struct SplitStage {
-  alignas(16) T r[kC * kDK];
-  alignas(16) T k[kC * kDK];
-  alignas(16) TW w[kC * kDK];
-  alignas(16) T v[kC * kDVB];
+// The tensor maps of r, k, logw and v: 4-d, (d, s, h, b) with the views'
+// strides, boxes of 64 columns x 16 rows (one chunk of one head)
+struct SplitMaps {
+  CUtensorMap r, k, w, v;
 };
+
+// one chunk's inputs as they lie in HBM, dense rows (TMA's boxes)
+template <typename T, typename TW>
+struct RawStage {
+  alignas(128) T r[kC * kDK];
+  alignas(128) T k[kC * kDK];
+  alignas(128) TW w[kC * kDK];
+  alignas(128) T v[kC * kDV];
+};
+
+// one chunk after a prep group, float32: what the state warps read, and
+// k_inc, which only the scores read
+struct alignas(128) PrepStage {
+  float rdec[kC][kRS];  // r e^{Lex}
+  float kinc[kC][kRS];  // k e^{-Lx}
+  // k e^{L_C - Lx}, wgmma's B operand of the state update, split into its
+  // TF32 high and low parts: [part][k-step of 8 tokens][group of 8 columns]
+  // [half of the k-step][column % 8][4 tokens], the no-swizzle K-major
+  // layout of 8 x 16-byte core matrices, its tokens in the products' k-slot
+  // order (half 0: tokens 0, 2, 4, 6; half 1: tokens 1, 3, 5, 7)
+  alignas(128) float kfin[2][2][kDK / 8][2][8][4];
+  float vf[kC][kKS];        // v
+  float attp[2][kC][kAS];  // r_dec k_inc^T over each half of the columns
+  float elc[kDK];          // e^{L_C}
+  float bonus[2][kC];      // sum_j r u k of each half of the columns
+};
+
+template <typename T, typename TW>
+struct SplitSmem {
+  RawStage<T, TW> raw[kNS];
+  PrepStage prep[kNP];
+  // full: the chunk is in place; empty: its readers are done with it
+  uint64_t raw_full[kNS], prep_full[kNP], prep_empty[kNP];
+  // this CTA's head in r, k, logw and v, for the plain loads of views that
+  // TMA cannot describe (read from here, and not held in registers)
+  const unsigned char* head[4];
+};
+// with room to align the dynamic shared memory to 128 bytes (TMA's boxes);
+// two CTAs, each with its 1 KB the system reserves, fit an SM's 228 KB
+template <typename T, typename TW>
+constexpr int split_smem_bytes() {
+  static_assert(kSplitCtas * (sizeof(SplitSmem<T, TW>) + 128 + 1024) <=
+                    233472,
+                "two CTAs an SM");
+  return static_cast<int>(sizeof(SplitSmem<T, TW>)) + 128;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// kC rows of W elements, row stride ss, into a dense shared array: 16-byte
-// cp.async when vec (to be waited for), else plain loads and stores
-template <int W, typename E>
-__device__ __forceinline__ void load_rows(E* dst, const E* src, int64_t ss,
-                                          bool vec, int tid) {
-  if (vec) {
-    constexpr int EPC = 16 / sizeof(E);  // elements a 16-byte chunk
-    constexpr int CPR = W / EPC;         // chunks a row
-#pragma unroll
-    for (int i = tid; i < kC * CPR; i += kSplitThreads) {
-      const int r = i / CPR, c = (i % CPR) * EPC;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_addr(dst + r * W + c)),
-                   "l"(src + r * ss + c));
-    }
-  } else {
-    for (int i = tid; i < kC * W; i += kSplitThreads)
-      dst[i] = src[(i / W) * ss + i % W];
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// until the phase of `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box of a tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// the i-th (i < 8) of the dk columns that score lane ag sums
-__device__ __forceinline__ int score_col(int ag, int i) {
-  return (i < 4 ? 4 * ag : 32 + 4 * ag - 4) + i;
+// x = hi + lo in two TF32 values (the low 13 bits zero, so the tensor cores
+// read them as they are): hi keeps x's top 11 significant bits, lo the next
+// 11 of the exact remainder x - hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
-// row[score_col(ag, 0..7)] as float32: two aligned runs of four
-__device__ __forceinline__ void load4x2(const float* row, int ag,
-                                        float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(row + 4 * ag);
-  const float4 b = *reinterpret_cast<const float4*>(row + 32 + 4 * ag);
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+// d += a b, one m16n8k8 TF32 product with float32 accumulators. Fragments
+// (g = lane / 4, q = lane % 4): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4),
+// a3 (g + 8, q + 4); b0 (q, g), b1 (q + 4, g); d0 (g, 2q), d1 (g, 2q + 1),
+// d2 (g + 8, 2q), d3 (g + 8, 2q + 1). Every product below permutes its
+// depth the same way in A and B, k-slot q holding depth 2q and k-slot q + 4
+// depth 2q + 1, so that a thread's two depths are neighbours (float2
+// loads) and the state's accumulator fragment is its A fragment as it is.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ void load4x2(const __nv_bfloat16* row, int ag,
-                                        float (&x)[8]) {
+// A wgmma descriptor of one k-step of k_fin: no swizzle, the two halves of
+// the k-step 128 bytes apart (leading byte offset), groups of 8 columns 256
+// bytes apart (stride byte offset)
+__device__ __forceinline__ uint64_t kfin_desc(const float* b) {
+  const uint32_t addr = smem_addr(b);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(128 >> 4) << 16 |
+         static_cast<uint64_t>(256 >> 4) << 32;
+}
+// d (the warpgroup's 64 x 64 float32 accumulator, each warp's 16 rows as
+// eight m16n8 fragments) += A B: A (64 x 8) TF32 in registers, each warp's
+// m16n8k8 A fragment of its 16 rows; B (8 x 64) TF32 in shared memory,
+// K-major, named by a descriptor
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kDK / 8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// Registers that an asynchronous wgmma reads or writes: the compiler keeps
+// them in place and moves no access to them across this point
+__device__ __forceinline__ void reg_fence(float (&r)[kDK / 8][4]) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const uint2 a = *reinterpret_cast<const uint2*>(row + 32 * half + 4 * ag);
-    const auto* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+  for (int i = 0; i < kDK / 8; ++i)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[4 * half + 2 * i] = f.x;
-      x[4 * half + 2 * i + 1] = f.y;
-    }
-  }
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+__device__ __forceinline__ void split2(float2 x, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  split_tf32(x.x, hi[0], lo[0]);
+  split_tf32(x.y, hi[1], lo[1]);
 }
 
 // One step of a reduce-scatter across the lanes that differ in `BIT`: the
 // lane keeps the half of its W live values that its bit selects, adds its
 // partner's copy of that half, and leaves the sums in part[0..W/2).
 template <int W, int BIT>
-__device__ __forceinline__ void reduce_scatter_step(float (&part)[kC],
+__device__ __forceinline__ void reduce_scatter_step(float (&part)[8],
                                                     int lane_id) {
   const bool up = (lane_id & BIT) != 0;
 #pragma unroll
@@ -314,247 +475,409 @@ __device__ __forceinline__ void reduce_scatter_step(float (&part)[kC],
   }
 }
 
-// shared memory of one CTA of the split route
 template <typename T, typename TW>
-struct SplitSmem {
-  SplitStage<T, TW> stage[2];       // chunk ci and the prefetched ci + 1
-  alignas(16) float rdec[kC][kSP];  // r e^{Lex}, rows padded
-  alignas(16) float kinc[kC][kDK];  // k e^{-Lx}
-  alignas(16) float att[kC][kC];    // strictly lower, the bonus diagonal
-  alignas(16) float vf[kC][kDVB];   // v, float32
-  alignas(16) float vT[kDVB][kC + 4];  // v transposed, rows padded
-  // the state at the chunk's start, transposed (S[j][c] at Sm[c][j]) for
-  // the output's reads; rows padded so that eight lanes' float4 reads of
-  // eight rows fall in distinct banks
-  alignas(16) float Sm[kDVB][kSP];
-};
-
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
-wkv_split_kernel(SplitParams p, int vec) {
+__global__ void __launch_bounds__(kSplitThreads, kSplitCtas)
+wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
+                 int tma) {
+  // a bfloat16 v is exact in TF32: its low halves are 0, and the products
+  // of v drop the pass that would multiply them
+  constexpr bool kVExact = sizeof(T) == 2;
+  constexpr uint32_t kRawBytes = kC * (kDK * (2 * sizeof(T) + sizeof(TW)) +
+                                        kDV * sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<SplitSmem<T, TW>*>(smem_raw);
-  constexpr int kCPT = kDVB / 2;  // state columns a thread updates
-  constexpr int kOPT = kDVB / 8;  // output columns a thread computes
-  constexpr int kVPT = kDVB / 8;  // v columns a thread converts
+  auto& sm = *reinterpret_cast<SplitSmem<T, TW>*>(
+      smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127));
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t bh = blockIdx.x;
   const int b = static_cast<int>(bh / p.H), h = static_cast<int>(bh % p.H);
-  const int col0 = blockIdx.y * kDVB;  // this CTA's state columns
-  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
-  const TW* w = static_cast<const TW*>(p.logw) + b * p.w_sb + h * p.w_sh;
-  T* o = static_cast<T*>(p.o) + bh * static_cast<int64_t>(p.S) * kDV + col0;
-
-  // roles: decay and state update: dk row j, half `hf` of the chunk's rows
-  // and of the CTA's columns (the two halves are neighbouring lanes);
-  // scores and output: chunk row `ar`; dk columns 4 ag..4 ag + 3 and
-  // 32 + 4 ag..32 + 4 ag + 3 of the scores (eight lanes read 128
-  // contiguous bytes); value columns ag + 8 m of the output
-  const int j = tid / 2, hf = tid % 2;
-  const int ar = tid / 8, ag = tid % 8;
-  const int last_row = (tid / 32) * 4 + 3;  // the warp's last chunk row
-
-  float st[kCPT];  // S[j][col0 + kCPT hf + c]: the state, in registers
-#pragma unroll
-  for (int c = 0; c < kCPT; ++c)
-    st[c] = p.state_in
-                ? p.state_in[(bh * kDK + j) * kDV + col0 + kCPT * hf + c]
-                : 0.f;
-  float uu[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) uu[i] = p.u[h * kDK + score_col(ag, i)];
-
-  const bool vec_load = vec != 0;
-  auto load_chunk = [&](SplitStage<T, TW>& sg, int ci) {
-    const int64_t t0 = static_cast<int64_t>(ci) * kC;
-    load_rows<kDK>(sg.r, r + t0 * p.r_ss, p.r_ss, vec_load, tid);
-    load_rows<kDK>(sg.k, k + t0 * p.k_ss, p.k_ss, vec_load, tid);
-    load_rows<kDK>(sg.w, w + t0 * p.w_ss, p.w_ss, vec_load, tid);
-    load_rows<kDVB>(sg.v, v + t0 * p.v_ss, p.v_ss, vec_load, tid);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
   const int nch = p.S / kC;
-  load_chunk(sm.stage[0], 0);
-  for (int ci = 0; ci < nch; ++ci) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();  // chunk ci is in place; chunk ci - 1 is consumed
-    if (ci + 1 < nch) load_chunk(sm.stage[(ci + 1) & 1], ci + 1);
-    const SplitStage<T, TW>& sg = sm.stage[ci & 1];
 
-    // the state at the chunk's start, for the output
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) sm.Sm[kCPT * hf + c][j] = st[c];
+  if (tid == 0) {
+    for (int st = 0; st < kNS; ++st) mbar_init(&sm.raw_full[st], 1);
+    for (int st = 0; st < kNP; ++st) {
+      mbar_init(&sm.prep_full[st], kPrepThreads);
+      mbar_init(&sm.prep_empty[st], kStateWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int64_t es = sizeof(T), ws = sizeof(TW);
+    sm.head[0] = static_cast<const unsigned char*>(p.r) +
+                 (b * p.r_sb + h * p.r_sh) * es;
+    sm.head[1] = static_cast<const unsigned char*>(p.k) +
+                 (b * p.k_sb + h * p.k_sh) * es;
+    sm.head[2] = static_cast<const unsigned char*>(p.logw) +
+                 (b * p.w_sb + h * p.w_sh) * ws;
+    sm.head[3] = static_cast<const unsigned char*>(p.v) +
+                 (b * p.v_sb + h * p.v_sh) * es;
+  }
+  __syncthreads();
 
-    // decay factors of column j, rows 8 hf..8 hf + 7, in base 2 (one
-    // ex2 each): the cumulative log-decay is a running sum here plus the
-    // other half's total
-    float lw[8], lx[8], run = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      lw[i] = to_f32(sg.w[(8 * hf + i) * kDK + j]) * kLog2e;
-      run += lw[i];
-      lx[i] = run;
-    }
-    const float other = __shfl_xor_sync(0xffffffffu, run, 1);
-    const float off = hf ? other : 0.f;
-    const float lc = hf ? other + run : run + other;  // L_C, both lanes
-    const float elc = exp2f(lc);  // e^{L_C} >= e^{-68}: a normal float
-    float kfin[8];  // k e^{L_C - Lx} of rows 8 hf + i
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = 8 * hf + i;
-      const float x = lx[i] + off;  // Lx (inclusive)
-      const float rr = to_f32(sg.r[t * kDK + j]);
-      const float kinc = to_f32(sg.k[t * kDK + j]) * exp2f(-x);
-      sm.rdec[t][j] = rr * exp2f(x - lw[i]);  // Lex = Lx - logw
-      sm.kinc[t][j] = kinc;
-      kfin[i] = kinc * elc;  // e^{-Lx} <= e^{68} and e^{L_C}: in range
-    }
-#pragma unroll
-    for (int e = 0; e < kVPT; ++e) {
-      const int c = kVPT * ag + e;
-      const float x = to_f32(sg.v[ar * kDVB + c]);
-      sm.vf[ar][c] = x;
-      sm.vT[c][ar] = x;
-    }
-    __syncthreads();
+  const int g = lane / 4, q = lane % 4;  // fragment coordinates
 
-    // scores of row ar: att[ar][s] = r_dec[ar] . k_inc[s] for s < ar, the
-    // bonus sum_j r u k on the diagonal, 0 above; each lane sums 8 of the
-    // 64 columns, eight lanes add up
-    {
-      float rd[8], rr[8], kk[8], diag = 0.f;
-      load4x2(&sm.rdec[ar][0], ag, rd);
-      load4x2(sg.r + ar * kDK, ag, rr);
-      load4x2(sg.k + ar * kDK, ag, kk);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) diag = fmaf(rr[i] * uu[i], kk[i], diag);
-      float part[kC];
-#pragma unroll
-      for (int s = 0; s < kC; ++s) {
-        if (s > last_row) {  // above the diagonal of every row of the warp
-          part[s] = 0.f;
-          continue;
+  if (warp < kPrepGroups * kPrepWarps) {
+    // ---- prep: everything that does not depend on the state, for chunks
+    // ahead of the state warps; group grp takes chunks grp, grp + 2, ....
+    // Thread (j, hf) owns column j of rows 8 hf..8 hf + 7: it sums the
+    // column's log-decay down all 16 rows (the same sums in both halves),
+    // and writes r_dec, k_inc, k_fin and v of its rows. Then each warp of
+    // the group sums a quarter of the scores. Thread 0 of the group is its
+    // producer: the group's next chunk, ci + kNS, goes by TMA into chunk
+    // ci's raw stage as soon as the group has read it. A view that TMA
+    // cannot describe is copied chunk by chunk by the group's own loads,
+    // into the same bytes.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kPrepRegs));
+    const int grp = warp / kPrepWarps, pt = tid % kPrepThreads;
+    const int pw = pt / 32;
+    const int j = lane + 32 * (pw & 1), hf = pw >> 1;
+    auto issue = [&](int ci) {
+      RawStage<T, TW>& rs = sm.raw[ci % kNS];
+      uint64_t* full = &sm.raw_full[ci % kNS];
+      mbar_expect_tx(full, kRawBytes);
+      tma_load(rs.r, &maps.r, 0, ci * kC, h, b, full);
+      tma_load(rs.k, &maps.k, 0, ci * kC, h, b, full);
+      tma_load(rs.w, &maps.w, 0, ci * kC, h, b, full);
+      tma_load(rs.v, &maps.v, 0, ci * kC, h, b, full);
+    };
+    if (tma && pt == 0)
+      for (int ci = grp; ci < kNS && ci < nch; ci += kPrepGroups) issue(ci);
+    const float uj = p.u[h * kDK + j];
+    for (int ci = grp; ci < nch; ci += kPrepGroups) {
+      const int st = ci % kNS, ps = ci % kNP;
+      if (tma) {
+        mbar_wait(&sm.raw_full[st], (ci / kNS) & 1);
+      } else {
+        RawStage<T, TW>& rs = sm.raw[st];
+        const T* r = reinterpret_cast<const T*>(sm.head[0]);
+        const T* k = reinterpret_cast<const T*>(sm.head[1]);
+        const TW* w = reinterpret_cast<const TW*>(sm.head[2]);
+        const T* v = reinterpret_cast<const T*>(sm.head[3]);
+        for (int i = pt; i < kC * kDK; i += kPrepThreads) {
+          const int64_t t = static_cast<int64_t>(ci) * kC + i / kDK;
+          const int c = i % kDK;
+          rs.r[i] = r[t * p.r_ss + c];
+          rs.k[i] = k[t * p.k_ss + c];
+          rs.w[i] = w[t * p.w_ss + c];
+          rs.v[i] = v[t * p.v_ss + c];
         }
-        const float4 k0 =
-            *reinterpret_cast<const float4*>(&sm.kinc[s][4 * ag]);
-        const float4 k1 =
-            *reinterpret_cast<const float4*>(&sm.kinc[s][32 + 4 * ag]);
-        float a0 = rd[0] * k0.x, a1 = rd[1] * k0.y;
-        a0 = fmaf(rd[2], k0.z, a0);
-        a1 = fmaf(rd[3], k0.w, a1);
-        a0 = fmaf(rd[4], k1.x, a0);
-        a1 = fmaf(rd[5], k1.y, a1);
-        a0 = fmaf(rd[6], k1.z, a0);
-        a1 = fmaf(rd[7], k1.w, a1);
-        part[s] = s < ar ? a0 + a1 : (s == ar ? diag : 0.f);
+        group_sync(1 + grp, kPrepThreads);
       }
-      // reduce-scatter over the eight lanes: each step halves the values
-      // a lane keeps, so lane ag ends with the sums of columns 2 ag, 2 ag + 1
-      reduce_scatter_step<16, 4>(part, ag);
-      reduce_scatter_step<8, 2>(part, ag);
-      reduce_scatter_step<4, 1>(part, ag);
-      *reinterpret_cast<float2*>(&sm.att[ar][2 * ag]) =
-          make_float2(part[0], part[1]);
-    }
-    __syncthreads();
+      if (ci >= kNP) mbar_wait(&sm.prep_empty[ps], ((ci / kNP) & 1) ^ 1);
+      const RawStage<T, TW>& rs = sm.raw[st];
+      PrepStage& pp = sm.prep[ps];
 
-    // o[ar][c] = r_dec[ar] . S[:, c] + sum_s att[ar][s] v[s][c] for the
-    // columns c = ag + 8 m, four independent accumulators each
-    {
-      float acc[kOPT][4];
+      // the inclusive cumulative log-decay of column j, in base 2 (one ex2
+      // a factor): L_C first, then the same sums again, row by row
+      float lc = 0.f;
 #pragma unroll
-      for (int m = 0; m < kOPT; ++m)
+      for (int t = 0; t < kC; ++t) lc += to_f32(rs.w[t * kDK + j]) * kLog2e;
+      const float elc = exp2f(lc);  // e^{L_C} >= e^{-68}: a normal float
+      float run = 0.f;
+      if (hf)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+        for (int t = 0; t < 8; ++t) run += to_f32(rs.w[t * kDK + j]) * kLog2e;
+      // v first, then every row of r_dec and k_inc in registers before any
+      // store, then the bonus's products from a second read of r and k:
+      // the compiler cannot tell the raw stage from the prepared one, and
+      // keeps each load behind every store before it
+      float vv[8];
 #pragma unroll
-      for (int jj = 0; jj < kDK; jj += 4) {
-        const float4 rd = *reinterpret_cast<const float4*>(&sm.rdec[ar][jj]);
+      for (int i = 0; i < 8; ++i) vv[i] = to_f32(rs.v[(8 * hf + i) * kDV + j]);
 #pragma unroll
-        for (int m = 0; m < kOPT; ++m) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(&sm.Sm[ag + 8 * m][jj]);
-          acc[m][0] = fmaf(rd.x, x.x, acc[m][0]);
-          acc[m][1] = fmaf(rd.y, x.y, acc[m][1]);
-          acc[m][2] = fmaf(rd.z, x.z, acc[m][2]);
-          acc[m][3] = fmaf(rd.w, x.w, acc[m][3]);
-        }
-      }
-      float out[kOPT];
-#pragma unroll
-      for (int m = 0; m < kOPT; ++m)
-        out[m] = (acc[m][0] + acc[m][1]) + (acc[m][2] + acc[m][3]);
-#pragma unroll
-      for (int s = 0; s < kC; s += 4) {
-        if (s > last_row) break;  // att is 0 above the warp's last row
-        const float4 a = *reinterpret_cast<const float4*>(&sm.att[ar][s]);
-#pragma unroll
-        for (int m = 0; m < kOPT; ++m) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(&sm.vT[ag + 8 * m][s]);
-          out[m] = fmaf(a.x, x.x, out[m]);
-          out[m] = fmaf(a.y, x.y, out[m]);
-          out[m] = fmaf(a.z, x.z, out[m]);
-          out[m] = fmaf(a.w, x.w, out[m]);
-        }
-      }
-      T* orow = o + (static_cast<int64_t>(ci) * kC + ar) * kDV;
-#pragma unroll
-      for (int m = 0; m < kOPT; ++m) orow[ag + 8 * m] = from_f32<T>(out[m]);
-    }
-
-    // S[j][c] = S e^{L_C} + sum_s k e^{L_C - Lx}[s][j] v[s][c] for this
-    // thread's columns c = kCPT hf + c', in registers
-    {
-      float kf[kC];  // all 16 rows: this lane's 8 and its neighbour's
+      for (int i = 0; i < 8; ++i) pp.vf[8 * hf + i][j] = vv[i];
+      float rdec[8], kinc[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float nb = __shfl_xor_sync(0xffffffffu, kfin[i], 1);
-        kf[i] = hf ? nb : kfin[i];
-        kf[8 + i] = hf ? kfin[i] : nb;
+        const int t = 8 * hf + i;
+        const float lw = to_f32(rs.w[t * kDK + j]) * kLog2e;
+        run += lw;  // Lx
+        kinc[i] = to_f32(rs.k[t * kDK + j]) * exp2f(-run);  // e^{-Lx} <= e^{68}
+        rdec[i] = to_f32(rs.r[t * kDK + j]) * exp2f(run - lw);  // Lex = Lx - logw
       }
-      float add[kCPT];
 #pragma unroll
-      for (int c = 0; c < kCPT; ++c) add[c] = 0.f;
+      for (int i = 0; i < 8; ++i) {
+        pp.rdec[8 * hf + i][j] = rdec[i];
+        pp.kinc[8 * hf + i][j] = kinc[i];
+      }
+      float bon[8];
 #pragma unroll
-      for (int s = 0; s < kC; ++s) {
+      for (int i = 0; i < 8; ++i) {
+        const int t = 8 * hf + i;
+        bon[i] = to_f32(rs.r[t * kDK + j]) * uj * to_f32(rs.k[t * kDK + j]);
+      }
+      // this thread's 8 tokens of column j are k-step hf of k_fin: one
+      // 16-byte row of a core matrix a half and a part
 #pragma unroll
-        for (int c = 0; c < kCPT; c += 4) {
-          const float4 x =
-              *reinterpret_cast<const float4*>(&sm.vf[s][kCPT * hf + c]);
-          add[c] = fmaf(kf[s], x.x, add[c]);
-          add[c + 1] = fmaf(kf[s], x.y, add[c + 1]);
-          add[c + 2] = fmaf(kf[s], x.z, add[c + 2]);
-          add[c + 3] = fmaf(kf[s], x.w, add[c + 3]);
+      for (int half = 0; half < 2; ++half) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(kinc[half + 2 * e] * elc, hi[e], lo[e]);
+        *reinterpret_cast<uint4*>(&pp.kfin[0][hf][j / 8][half][j % 8][0]) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(&pp.kfin[1][hf][j / 8][half][j % 8][0]) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      if (hf == 0) pp.elc[j] = elc;
+      // the bonus of each row over the warp's 32 columns: a reduce-scatter
+      // leaves row lane / 4 in each lane, summed over lane bits 4, 3, 2;
+      // two more shuffles add bits 1 and 0
+      reduce_scatter_step<8, 16>(bon, lane);
+      reduce_scatter_step<4, 8>(bon, lane);
+      reduce_scatter_step<2, 4>(bon, lane);
+      float bsum = bon[0];
+      bsum += __shfl_xor_sync(0xffffffffu, bsum, 2);
+      bsum += __shfl_xor_sync(0xffffffffu, bsum, 1);
+      if (q == 0) pp.bonus[pw & 1][8 * hf + g] = bsum;
+      group_sync(1 + grp, kPrepThreads);  // the chunk's arrays are in place
+      if (tma && pt == 0 && ci + kNS < nch) issue(ci + kNS);
+
+      {
+        // scores: warp pw sums one half kh of the 64 columns (k-steps
+        // 4 kh..4 kh + 3) of att = r_dec k_inc^T for the tokens s in
+        // 8 nt..8 nt + 7 of all 16 rows t, in split TF32, each pass in its
+        // own accumulator; the state warps add the two halves, mask them
+        // and put the bonus on the diagonal as they read them
+        const int nt = pw & 1, kh = pw >> 1;
+        float hh[4] = {}, hl[4] = {}, lh[4] = {};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ks = 4 * kh + i;
+          const float2 x0 =
+              *reinterpret_cast<const float2*>(&pp.rdec[g][8 * ks + 2 * q]);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              &pp.rdec[g + 8][8 * ks + 2 * q]);
+          const float2 y = *reinterpret_cast<const float2*>(
+              &pp.kinc[8 * nt + g][8 * ks + 2 * q]);
+          uint32_t ahi[4], alo[4], bhi[2], blo[2];
+          split_tf32(x0.x, ahi[0], alo[0]);
+          split_tf32(x1.x, ahi[1], alo[1]);
+          split_tf32(x0.y, ahi[2], alo[2]);
+          split_tf32(x1.y, ahi[3], alo[3]);
+          split2(y, bhi, blo);
+          mma_tf32(hl, ahi, blo);
+          mma_tf32(lh, alo, bhi);
+          mma_tf32(hh, ahi, bhi);
         }
+        float part[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[e] = hh[e] + (hl[e] + lh[e]);
+        *reinterpret_cast<float2*>(&pp.attp[kh][g][8 * nt + 2 * q]) =
+            make_float2(part[0], part[1]);
+        *reinterpret_cast<float2*>(&pp.attp[kh][g + 8][8 * nt + 2 * q]) =
+            make_float2(part[2], part[3]);
       }
-#pragma unroll
-      for (int c = 0; c < kCPT; ++c) st[c] = st[c] * elc + add[c];
+      // k_fin is read by wgmma, through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&sm.prep_full[ps]);
     }
+    return;
   }
-  float* so = p.state_out + (bh * kDK + j) * kDV + col0 + kCPT * hf;
+
+  // ---- state: warp sw holds the state's columns c0..c0 + 15 as S^T, a
+  // 16 x 64 accumulator fragment of eight m16n8 tiles (the warpgroup's 64 x
+  // 64 wgmma accumulator): s[n] holds S^T[c0 + g (+8)][8 n + 2 q (+1)],
+  // i.e. S[j][c] at j = 8 n + 2 q (+1), c = c0 + g (+8). A chunk is
+  // o^T = S^T r_dec^T + v^T att^T (the state fragment is the A operand as
+  // it is), then S^T = S^T e^{L_C} + v^T k_fin
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kStateRegs));
+  const int sw = warp - kPrepGroups * kPrepWarps;
+  const int c0 = 16 * sw;
+  float s[kDK / 8][4];
+  {
+    const float* si = p.state_in + bh * kDK * kDV;
 #pragma unroll
-  for (int c = 0; c < kCPT; ++c) so[c] = st[c];
+    for (int n = 0; n < kDK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = p.state_in ? si[(8 * n + 2 * q + (e & 1)) * kDV + c0 + g +
+                                  8 * (e >> 1)]
+                             : 0.f;
+  }
+  T* o = static_cast<T*>(p.o) + bh * static_cast<int64_t>(p.S) * kDV;
+  for (int ci = 0; ci < nch; ++ci) {
+    const int ps = ci % kNP;
+    mbar_wait(&sm.prep_full[ps], (ci / kNP) & 1);
+    const PrepStage& pp = sm.prep[ps];
+
+    // v^T's fragments for both k-steps (tokens 8 ks..8 ks + 7): the A
+    // operand of att v and of the state update
+    uint32_t vh[2][4], vl[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x =
+            pp.vf[8 * ks + 2 * q + (e >> 1)][c0 + g + 8 * (e & 1)];
+        split_tf32(x, vh[ks][e], vl[ks][e]);
+      }
+
+    // o^T (columns c, tokens t): two n-tiles of 8 tokens, each pass of the
+    // split products in its own accumulator, o = hh + (hl + lh)
+    float ohh[2][4] = {}, ohl[2][4] = {}, olh[2][4] = {};
+#pragma unroll
+    for (int n = 0; n < kDK / 8; ++n) {
+      uint32_t ahi[4], alo[4];
+      split_tf32(s[n][0], ahi[0], alo[0]);
+      split_tf32(s[n][2], ahi[1], alo[1]);
+      split_tf32(s[n][1], ahi[2], alo[2]);
+      split_tf32(s[n][3], ahi[3], alo[3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t bhi[2], blo[2];
+        split2(*reinterpret_cast<const float2*>(
+                   &pp.rdec[8 * nt + g][8 * n + 2 * q]),
+               bhi, blo);
+        mma_tf32(ohl[nt], ahi, blo);
+        mma_tf32(olh[nt], alo, bhi);
+        mma_tf32(ohh[nt], ahi, bhi);
+      }
+    }
+    // att's B fragments: the two halves added, masked to s < t, the bonus
+    // at s = t; tokens 8..15 of rows 0..7 are all above the diagonal
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int nt = ks; nt < 2; ++nt) {
+        const int t = 8 * nt + g, s0 = 8 * ks + 2 * q;
+        const float2 p0 =
+            *reinterpret_cast<const float2*>(&pp.attp[0][t][s0]);
+        const float2 p1 =
+            *reinterpret_cast<const float2*>(&pp.attp[1][t][s0]);
+        const float bonus = pp.bonus[0][t] + pp.bonus[1][t];
+        const float2 a =
+            make_float2(s0 < t ? p0.x + p1.x : (s0 == t ? bonus : 0.f),
+                        s0 + 1 < t ? p0.y + p1.y : (s0 + 1 == t ? bonus : 0.f));
+        uint32_t bhi[2], blo[2];
+        split2(a, bhi, blo);
+        if (!kVExact) mma_tf32(olh[nt], vl[ks], bhi);
+        mma_tf32(ohl[nt], vh[ks], blo);
+        mma_tf32(ohh[nt], vh[ks], bhi);
+      }
+    // S^T[c][j] = S^T[c][j] e^{L_C}[j] + sum_t v[t][c] k_fin[t][j]
+#pragma unroll
+    for (int n = 0; n < kDK / 8; ++n) {
+      const float2 e = *reinterpret_cast<const float2*>(&pp.elc[8 * n + 2 * q]);
+      s[n][0] *= e.x;
+      s[n][1] *= e.y;
+      s[n][2] *= e.x;
+      s[n][3] *= e.y;
+    }
+    // the update as wgmma.m64n64k8 of the state warpgroup, the state its
+    // accumulator: per k-step v_lo k_fin_hi, v_hi k_fin_lo, v_hi k_fin_hi
+    reg_fence(s);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const uint64_t dhi = kfin_desc(&pp.kfin[0][ks][0][0][0][0]);
+      const uint64_t dlo = kfin_desc(&pp.kfin[1][ks][0][0][0][0]);
+      if (!kVExact) wgmma_tf32(s, vl[ks], dhi);
+      wgmma_tf32(s, vh[ks], dlo);
+      wgmma_tf32(s, vh[ks], dhi);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the chunk's output while the update runs
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t t = static_cast<int64_t>(ci) * kC + 8 * nt + 2 * q +
+                          (e & 1);
+        o[t * kDV + c0 + g + 8 * (e >> 1)] =
+            from_f32<T>(ohh[nt][e] + (ohl[nt][e] + olh[nt][e]));
+      }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reg_fence(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.prep_empty[ps]);
+  }
+  float* so = p.state_out + bh * kDK * kDV;
+#pragma unroll
+  for (int n = 0; n < kDK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      so[(8 * n + 2 * q + (e & 1)) * kDV + c0 + g + 8 * (e >> 1)] = s[n][e];
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (so that the library
+// need not link libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor maps of one call; false where TMA cannot describe a view (the
+// producer then copies by plain loads)
+template <typename T, typename TW>
+bool encode_split_maps(SplitMaps* m, const SplitParams& p, int batch) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  auto one = [&](CUtensorMap* map, const void* ptr, int es, int64_t ss,
+                 int64_t sh, int64_t sb) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kDK),
+                                static_cast<cuuint64_t>(p.S),
+                                static_cast<cuuint64_t>(p.H),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * es),
+                                   static_cast<cuuint64_t>(sh * es),
+                                   static_cast<cuuint64_t>(sb * es)};
+    const cuuint32_t box[4] = {kDK, kC, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    return encode(map,
+                  es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  4, const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  constexpr int es = sizeof(T), ws = sizeof(TW);
+  return one(&m->r, p.r, es, p.r_ss, p.r_sh, p.r_sb) &&
+         one(&m->k, p.k, es, p.k_ss, p.k_sh, p.k_sb) &&
+         one(&m->w, p.logw, ws, p.w_ss, p.w_sh, p.w_sb) &&
+         one(&m->v, p.v, es, p.v_ss, p.v_sh, p.v_sb);
 }
 
 template <typename T, typename TW>
-int launch_split(const SplitParams& p, int64_t bh, int vec,
+int launch_split(const SplitParams& p, int batch, int vec,
                  cudaStream_t stream) {
   auto kernel = wkv_split_kernel<T, TW>;
-  constexpr int bytes = sizeof(SplitSmem<T, TW>);
+  constexpr int bytes = split_smem_bytes<T, TW>();
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const dim3 grid(static_cast<unsigned>(bh), kDV / kDVB);
-  kernel<<<grid, kSplitThreads, bytes, stream>>>(p, vec);
+  SplitMaps maps;
+  memset(&maps, 0, sizeof maps);
+  const int tma = vec && encode_split_maps<T, TW>(&maps, p, batch) ? 1 : 0;
+  const int64_t bh = static_cast<int64_t>(batch) * p.H;
+  kernel<<<static_cast<unsigned>(bh), kSplitThreads, bytes, stream>>>(
+      maps, p, tma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -611,7 +934,7 @@ int wkv_split(const void* r, const void* k, const void* v, const void* logw,
                 static_cast<float*>(state_out),            r_sb,
                 r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                 w_sb, w_sh, w_ss, H,    S};
-  // 16-byte rows and bases: the asynchronous copy; else plain loads
+  // 16-byte strides and bases: TMA; else the producer's plain loads
   const int es = dtype == 0 ? 4 : 2, ws = wdtype == 0 ? 4 : 2;
   bool vec = true;
   for (int64_t st : {r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss})
@@ -622,13 +945,13 @@ int wkv_split(const void* r, const void* k, const void* v, const void* logw,
   const int vi = vec ? 1 : 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && wdtype == 0)
-    return launch_split<float, float>(p, bh, vi, s);
+    return launch_split<float, float>(p, B, vi, s);
   if (dtype == 1 && wdtype == 0)
-    return launch_split<__nv_bfloat16, float>(p, bh, vi, s);
+    return launch_split<__nv_bfloat16, float>(p, B, vi, s);
   if (dtype == 1 && wdtype == 1)
-    return launch_split<__nv_bfloat16, __nv_bfloat16>(p, bh, vi, s);
+    return launch_split<__nv_bfloat16, __nv_bfloat16>(p, B, vi, s);
   if (dtype == 0 && wdtype == 1)
-    return launch_split<float, __nv_bfloat16>(p, bh, vi, s);
+    return launch_split<float, __nv_bfloat16>(p, B, vi, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,8 +10,8 @@ Two routes, each its own C entry point, so that the launch counter shows
 which one ran; :func:`wkv_route` picks one from the shape, and nothing
 falls back from one to the other:
 
-- ``wkv_split``: dk = dv = 64 with chunk 16 (rwkv6-7b's heads), the state's
-  columns split across two CTAs a head; it reads r, k, v and logw
+- ``wkv_split``: dk = dv = 64 with chunk 16 (rwkv6-7b's heads), one CTA of
+  three warpgroups a head (``csrc/wkv.cu``); it reads r, k, v and logw
   through their strides (the last dimension contiguous), so the model's
   head-transposed views go in without copies;
 - ``wkv``: every other shape, one CTA a head, on contiguous copies.

@@ -1042,9 +1042,17 @@ def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,
     (2, 4, 128, 64, 64, 16, torch.bfloat16, torch.bfloat16, False, True),
     (1, 2, 48, 16, 32, 8, torch.float32, torch.float32, False, True),
     (1, 1, 8, 64, 64, 16, torch.float32, torch.float32, False, False),
+    # the -4.25 clamp on the split route (e^{+-68} in its TF32 operands)
+    (1, 2, 64, 64, 64, 16, torch.float32, torch.float32, True, False),
+    (1, 2, 64, 64, 64, 16, torch.bfloat16, torch.float32, True, False),
+    # rwkv6-7b's training microbatch, from a non-zero state
+    (2, 64, 1024, 64, 64, 16, torch.bfloat16, torch.float32, False, True),
 ])
 def test_wkv_kernel_equals_plain(fp32_cuda, b, h, s, dk, dv, chunk, dtype,
                                  wdtype, strong, state):
+    """Each route against the plain chunked version (and, in float32 from
+    a zero state, the sequential recurrence); a second call gives the same
+    bits."""
     r, k, v, logw, u = _wkv_inputs(fp32_cuda, b, h, s, dk, dv, dtype, wdtype,
                                    strong=strong)
     s0 = (torch.randn(b, h, dk, dv, generator=torch.Generator("cpu")
@@ -1062,6 +1070,9 @@ def test_wkv_kernel_equals_plain(fp32_cuda, b, h, s, dk, dv, chunk, dtype,
     if not state and dtype == torch.float32:
         torch.testing.assert_close(o, wkv_sequential(r, k, v, logw, u),
                                    atol=5e-4, rtol=1e-3)
+    o2, st2 = wkv_cuda(r, k, v, logw, u, s0 if state else None, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(st2, st)
 
 
 def test_wkv_counts_and_refuses_ragged_lengths(cuda):
@@ -1115,6 +1126,35 @@ def test_wkv_split_route_on_head_transposed_views(fp32_cuda, b, dtype,
     torch.cuda.synchronize()
     torch.testing.assert_close(o2.float(), o.float(), atol=0, rtol=0)
     torch.testing.assert_close(st2, st, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv_split_route_takes_views_tma_cannot_describe(fp32_cuda, dtype):
+    """Rows 65 elements apart, a stride TMA cannot take: the split route
+    copies its chunks with plain loads, within tolerance of the plain
+    version and bit for bit what the contiguous copies (by TMA) give."""
+    b, h, s, d = 2, 4, 96, 64
+    g = torch.Generator("cpu").manual_seed(31)
+    r, k, v = ((torch.randn(b, h, s, d + 1, generator=g) * 0.4).to(
+        fp32_cuda, dtype)[..., :d] for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.randn(b, h, s, d + 1, generator=g)
+                                  * 0.3 - 0.6), -4.25, -1e-6).to(
+        fp32_cuda)[..., :d]
+    u = (torch.randn(h, d, generator=g) * 0.3).to(fp32_cuda)
+    s0 = torch.randn(b, h, d, d, generator=g).to(fp32_cuda)
+    assert r.stride(2) == d + 1 and logw.stride(2) == d + 1
+    _build.launches.clear()
+    o, st = wkv_cuda(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv_split": 1}
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, s0)
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(st, want_st, atol=5e-4, rtol=1e-3)
+    o2, st2 = wkv_cuda(*(t.contiguous() for t in (r, k, v, logw)), u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(st2, st)
 
 
 def test_wkv_routes_by_shape(cuda):

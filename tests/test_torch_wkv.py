@@ -9,6 +9,9 @@ The CUDA kernel is held against the same plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -144,6 +147,144 @@ def test_dv_split_premise_matches_jax(b, h, s, dk, dv, parts, chunk):
     _close(torch.cat([st for _, st in outs], dim=-1), jstate)
 
 
+def _tf32(x):
+    """``x`` with its low 13 bits cleared: the TF32 value the kernel hands
+    the tensor cores."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _split(x):
+    """x = hi + lo as two TF32 values, as ``split_tf32`` in ``wkv.cu``."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _passes(acc, a, b, a_exact=False, split=_split):
+    """The split-TF32 product ``a b`` added one k-step of 8 at a time into
+    three accumulators, one a pass: ``(hh, hl, lh) += (a_hi b_hi, a_hi b_lo,
+    a_lo b_hi)``, in float32. ``a_exact``: a's low part is 0 (a bfloat16 v)
+    and its pass is dropped. ``split`` splits an operand."""
+    hh, hl, lh = acc
+    (ah, al), (bh, bl) = split(a), split(b)
+    for d in range(0, a.shape[-1], 8):
+        sl = slice(d, d + 8)
+        hl = hl + ah[..., sl] @ bl[..., sl, :]
+        if not a_exact:
+            lh = lh + al[..., sl] @ bh[..., sl, :]
+        hh = hh + ah[..., sl] @ bh[..., sl, :]
+    return hh, hl, lh
+
+
+def _split_route_arithmetic(r, k, v, logw, u, state, v_exact=False,
+                            split=_split):
+    """The arithmetic of ``wkv_split`` in plain PyTorch, chunk by chunk in
+    its order: the log-decay summed down each column in base 2, one exp2 a
+    factor, the scores as two halves of the columns (each hh + (hl + lh))
+    added, o as r_dec S and then att v in one accumulator a pass, the state
+    scaled by e^{L_C} and then updated in place one k-step at a time.
+    ``split`` splits each operand into its TF32 parts."""
+    b, h, s, dk = r.shape
+    dv = v.shape[-1]
+    c = 16
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    lw = logw.float() * log2e
+    rf, kf, vf = r.float(), k.float(), v.float()
+    bonus_u = u.float()[None, :, None, :]
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool), diagonal=-1)
+    eye = torch.eye(c, dtype=torch.bool)
+    S = state.float().clone()
+    outs = []
+    for t0 in range(0, s, c):
+        rc, kc, vc, wc = (x[:, :, t0:t0 + c] for x in (rf, kf, vf, lw))
+        run = torch.zeros_like(wc[:, :, 0])
+        lx = []
+        for t in range(c):
+            run = run + wc[:, :, t]
+            lx.append(run)
+        lx = torch.stack(lx, dim=2)
+        elc = torch.exp2(run)                                  # (b, h, dk)
+        kinc = kc * torch.exp2(-lx)
+        rdec = rc * torch.exp2(lx - wc)
+        kfin = kinc * elc[:, :, None]
+        bonus = (rc * bonus_u * kc).sum(-1)
+        zero = torch.zeros(b, h, c, c)
+        halves = []
+        for cols in (slice(0, dk // 2), slice(dk // 2, dk)):
+            hh, hl, lh = _passes((zero, zero, zero), rdec[..., cols],
+                                 kinc[..., cols].transpose(-1, -2),
+                                 split=split)
+            halves.append(hh + (hl + lh))
+        att = halves[0] + halves[1]
+        att = torch.where(tri, att, torch.where(eye, bonus[..., None], 0.0))
+        # o^T = S^T r_dec^T + v^T att^T: S^T and v^T are the A operands
+        zero_o = torch.zeros(b, h, dv, c)
+        acc = _passes((zero_o, zero_o, zero_o), S.transpose(-1, -2),
+                      rdec.transpose(-1, -2), split=split)
+        hh, hl, lh = _passes(acc, vc.transpose(-1, -2),
+                             att.transpose(-1, -2), a_exact=v_exact,
+                             split=split)
+        outs.append((hh + (hl + lh)).transpose(-1, -2))
+        # S^T = S^T e^{L_C} + v^T k_fin, accumulated into the state itself
+        St = S.transpose(-1, -2) * elc[:, :, None, :]
+        (vh, vl), (fh, fl) = split(vc.transpose(-1, -2)), split(kfin)
+        for d in range(0, c, 8):
+            sl = slice(d, d + 8)
+            if not v_exact:
+                St = St + vl[..., sl] @ fh[..., sl, :]
+            St = St + vh[..., sl] @ fl[..., sl, :]
+            St = St + vh[..., sl] @ fh[..., sl, :]
+        S = St.transpose(-1, -2)
+    return torch.cat(outs, dim=2).to(r.dtype), S.contiguous()
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,strong,state", [
+    (2, 3, 128, 16, 16, False, False), (1, 2, 64, 32, 32, False, False),
+    (1, 1, 256, 64, 64, False, False), (2, 2, 96, 16, 32, False, False),
+    (1, 2, 64, 64, 64, True, False), (1, 2, 256, 64, 64, False, True),
+])
+def test_split_route_arithmetic_matches_jax(b, h, s, dk, dv, strong, state):
+    """``wkv_split``'s arithmetic (split TF32 products, its order of steps)
+    rendered in plain PyTorch holds JAX's ``wkv_chunked`` (o and the final
+    state) and, from a zero state, ``wkv_sequential`` at the reference
+    tolerance: at the sweep's shapes, the -4.25 decay clamp at a 64 x 64
+    head (e^{+-68} in the factors) and a 64 x 64 head from a non-zero
+    state."""
+    arrays = _inputs(b, h, s, dk, dv, seed=17, strong=strong)
+    state0 = (np.random.RandomState(18).randn(b, h, dk, dv) if state
+              else np.zeros((b, h, dk, dv))).astype(np.float32)
+    o, st = _split_route_arithmetic(*_t(arrays), torch.from_numpy(state0))
+    assert torch.isfinite(o).all() and torch.isfinite(st).all()
+    jo, jstate = jax_chunked(*arrays, jnp.asarray(state0), chunk=16)
+    _close(o, jo)
+    _close(st, jstate)
+    if not state:
+        _close(o, jax_sequential(*arrays))
+    # a bfloat16 v is exact in TF32: dropping its low pass changes nothing
+    vb = torch.from_numpy(arrays[2]).bfloat16().float()
+    r, k, _, logw, u = _t(arrays)
+    s0 = torch.from_numpy(state0)
+    full = _split_route_arithmetic(r, k, vb, logw, u, s0)
+    dropped = _split_route_arithmetic(r, k, vb, logw, u, s0, v_exact=True)
+    assert all(torch.equal(x, y) for x, y in zip(full, dropped))
+
+
+def test_one_tf32_pass_would_miss_the_tolerance():
+    """Why every product of ``wkv_split`` splits its operands: the same
+    arithmetic with one TF32 pass (the low parts dropped) misses the
+    reference tolerance against JAX at the -4.25 decay clamp on a 64 x 64
+    head, where the split passes hold it."""
+    arrays = _inputs(1, 2, 64, 64, 64, seed=17, strong=True)
+    zero = torch.zeros(1, 2, 64, 64)
+    jo = np.asarray(jax_chunked(*arrays, jnp.zeros((1, 2, 64, 64)),
+                                chunk=16)[0])
+    limit = TOL["atol"] + TOL["rtol"] * np.abs(jo)
+    split, _ = _split_route_arithmetic(*_t(arrays), zero)
+    assert (np.abs(split.numpy() - jo) <= limit).all()
+    single, _ = _split_route_arithmetic(
+        *_t(arrays), zero, split=lambda x: (_tf32(x), torch.zeros_like(x)))
+    assert (np.abs(single.numpy() - jo) > limit).any()
+
+
 @pytest.mark.parametrize("state", [False, True])
 def test_wkv_with_state_takes_strided_views(state):
     """The model hands the op head-transposed views of (B, S, H, d)
@@ -196,3 +337,84 @@ def test_inclusive_scan_is_the_prefix_sum(shape, dim):
     assert got.shape == x.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(jnp.cumsum(x, dim)),
                                atol=1e-5, rtol=1e-5)
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+#: the four compiled instances of the split kernel, as nvcc names them
+SPLIT = ("_ZN33_GLOBAL__N__387ee8fb_6_wkv_cu_wkv16wkv_split_kernelI{}EEvNS_9"
+         "SplitMapsENS_11SplitParamsEi")
+SPLIT_TYPES = ("ff", "13__nv_bfloat16f", "13__nv_bfloat16S1_",
+               "f13__nv_bfloat16")
+
+
+def _split_log(spill=(), registers=80):
+    """An ``-Xptxas -v`` log of the split kernel's instances, those of
+    ``spill`` with 16 bytes spilled, each with ``registers``."""
+    return "".join(f"""\
+ptxas info    : Compiling entry function '{SPLIT.format(t)}' for 'sm_90a'
+ptxas info    : Function properties for {SPLIT.format(t)}
+    {16 * (t in spill)} bytes stack frame, {16 * (t in spill)} bytes spill stores, {16 * (t in spill)} bytes spill loads
+ptxas info    : Used {registers} registers, used 2 barriers
+""" for t in SPLIT_TYPES)
+
+
+def test_ptxas_gate_holds_every_wkv_split_instance():
+    """``chip_smoke.ptxas_gate`` holds each of the split kernel's four
+    instances, read from a build log and named in
+    ``PTXAS_GATED_INSTANCES``, to no stack, no spill and the 80 registers
+    its setmaxnreg split redistributes, and fails when the log reports no
+    such instance."""
+    smoke = _smoke()
+    clean = dict(stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+                 registers=128, static_smem_bytes=0)
+    others = {fn: dict(clean) for fn in (*smoke.PTXAS_GATED.values(),
+                                         *smoke.PTXAS_GATED_INSTANCES)
+              if fn not in smoke.WKV_SPLIT_INSTANCES}
+    rep = smoke.ptxas_report(_split_log())
+    assert set(rep) == {f"wkv_split_kernelI{t}" for t in SPLIT_TYPES}
+    assert set(rep) == set(smoke.WKV_SPLIT_INSTANCES)
+    assert set(rep) <= set(smoke.PTXAS_GATED_INSTANCES)
+    assert smoke.WKV_SPLIT_REGISTERS == 80
+    out = smoke.ptxas_gate({**others, **rep})
+    assert set(out["wkv_split"]) == set(rep)
+    spilled = smoke.ptxas_report(_split_log(spill=("13__nv_bfloat16f",)))
+    with pytest.raises(smoke.PhaseError, match="stack or spills"):
+        smoke.ptxas_gate({**others, **spilled})
+    fewer = smoke.ptxas_report(_split_log(registers=72))
+    with pytest.raises(smoke.PhaseError, match="72 registers"):
+        smoke.ptxas_gate({**others, **fewer})
+    del rep["wkv_split_kernelIff"]
+    with pytest.raises(smoke.PhaseError,
+                       match="no report of wkv_split_kernelIff"):
+        smoke.ptxas_gate({**others, **rep})
+
+
+def test_wkv_split_bound_takes_the_products_on_the_tensor_cores():
+    """``chip_smoke._wkv_split_bounds`` at rwkv6-7b's prefill shape: the
+    products at split TF32's 495 / 3 TFLOP/s and the rest at 67 TFLOP/s
+    take less than the 104,873,984 bytes at 3.35 TB/s, so the bytes bind."""
+    smoke = _smoke()
+    b, h, s, d = 4, 64, 512, 64
+    meta = dict(device="meta")
+    r, k, v = (torch.empty((b, h, s, d), dtype=torch.bfloat16, **meta)
+               for _ in range(3))
+    logw = torch.empty((b, h, s, d), **meta)
+    u = torch.empty((h, d), **meta)
+    st = torch.empty((b, h, d, d), **meta)
+    got = smoke._wkv_split_bounds(r, k, v, logw, u, None, r, st)
+    assert got["bytes"] == 104_873_984 and got["flops"] == 2_533_359_616
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(104_873_984 / 3.35e12 * 1e3)
+    assert got["ops_ms"] == pytest.approx(
+        got["product_flops"] / (495e12 / 3) * 1e3)
+    assert got["ops_ms"] < got["bytes_ms"] < got["fp32_ops_ms"]
+    with_state = smoke._wkv_split_bounds(r, k, v, logw, u, st, r, st)
+    assert with_state["bytes"] == got["bytes"] + st.numel() * 4
+

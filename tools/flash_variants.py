@@ -125,15 +125,7 @@ def build(name, path, out_dir):
                         for dp, line in sorted(r.items())) for r in routes]
     marker = "}  // namespace\n"
     src = src.replace(marker, marker + OCCUPANCY % tuple(cases), 1)
-    cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
-    cu.write_text(src)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (out_dir / f"{name}.log").write_text(log)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{log}")
-    lib = ctypes.CDLL(str(so))
+    lib, log = _build.build_copy(name, src, out_dir)
     for symbol in fa.ROUTES:
         getattr(lib, symbol).argtypes = list(fa._ARGS)
         getattr(lib, symbol).restype = ctypes.c_int
