@@ -59,7 +59,10 @@ plain version):
    (16 x 16 heads, and 64 x 64 heads on the split route in float32 and
    with bf16 r/k/v), rwkv6-7b's shape (4, 64, 512, 64) with bf16 r/k/v and
    float32 logw, then in float32, and its training microbatch (2, 64,
-   1,024, 64) from a non-zero state: ``o`` and the final state against
+   1,024, 64) from a non-zero state; on the masked route rwkv6-7b's heads
+   over 8 tokens, 1 token (C = 1) and 13 (C = 13), chunks of 8 and 12,
+   24 x 40 and 7 x 5 heads and the clamp at 32 x 32, float32 and bf16,
+   from a zero or a given state: ``o`` and the final state against
    the plain chunked version, a float32 ``o`` from a zero state against
    ``wkv_sequential``, at 5e-4 / 1e-3 (a bf16 ``o`` at 2e-2), and a second
    call equal bit for bit. Every case runs through the route its dispatch picks
@@ -142,7 +145,11 @@ plain version):
    and 32 ``wkv_split`` (rwkv6), none of ``flash_attention``; none in
    decode. Then prefill ms and tokens/s, decode ms per step, both
    bootstraps, the card's idle share over a prefill (``torch.profiler``)
-   and the peak allocated memory.
+   and the peak allocated memory. Then rwkv6-7b's prompts cut to 8 tokens
+   through the same steps and parameters: the prefill launches exactly 32
+   ``wkv`` (the masked route, chunk 8) with no copy kernel just before
+   any, 8 decode steps launch nothing; its wall, busy time, idle share and
+   top device functions.
 9. Prefill -> decode consistency at full width in float32 (the port of
    ``tests/test_models.py:86``, with its settings: MoE at a capacity
    factor of 1000): b = 1, s = 544, cut = 512 (zamba2: s = 576, its chunks
@@ -153,18 +160,21 @@ plain version):
    plain recurrences, so a wrong kernel shows as a mismatch. For MoE every
    routing decision of the prefill and of each decode step is compared
    with the teacher-forced pass's; the number that differ is printed with
-   each one's margin, and one beyond a near-tie (1e-4) fails.
+   each one's margin, and one beyond a near-tie (1e-4) fails. Then
+   rwkv6-7b's short case, s = 16, cut = 8: ``forward_full`` runs 32
+   ``wkv_split``, the 8-token prefill 32 ``wkv``, within the same 1e-3.
 10. Model kernel times, each entry point at the shape its main-path run
     gives it: device time per launch, its ratio to its bound and to
     ``scaled_dot_product_attention`` (flash; WKV has no library call), the
     plain version's time; then the bf16 flash route at the new families'
     prefill shapes (olmoe, deepseek-v2's MLA, zamba2's shared block,
     seamless's encoder / cross and decoder attention) and at gemma2-2b's
-    (D = 256, served by no phase) beside SDPA in turns. The
-    one-CTA-a-head ``wkv`` route is on no
-    main-path run (rwkv6-7b's 512-token prompts take ``wkv_split``); it is
-    timed at rwkv6-7b's heads over an 8-token prompt, the one chunk of 8
-    tokens it would scan, and held there on ``o`` and the final state.
+    (D = 256, served by no phase) beside SDPA in turns. The masked
+    ``wkv`` route is timed on the model's views at rwkv6-7b's heads over
+    its 8-token prompt (the short serve's shape), 1 and 13 tokens and 512
+    tokens in chunks of 8, each held on ``o`` and the final state, beside
+    its contiguous copies, the plain version and its bound (the products as
+    split TF32, the useful dk x dv x C work only).
     ``wkv_split`` is also timed at rwkv6-7b's prefill at B = 1 and 2, in
     float32 at B = 4, and at the training microbatch from a non-zero
     state, each with its bytes and float32-operations bounds.
@@ -172,8 +182,9 @@ plain version):
     redesigned kernels from the ptxas report of the build; gate: the
     lookup kernels (sharded, which the tiled routes launch at one shard,
     and scalar), ``chunk_gather_byval``, every instance of
-    ``flash_mma_kernel``, ``flash_kernel`` and ``wkv_split_kernel`` have a
-    0-byte stack frame and no spills, and no ``wgmma`` serialized.
+    ``flash_mma_kernel``, ``flash_kernel``, ``wkv_split_kernel`` and
+    ``wkv_kernel`` have a 0-byte stack frame and no spills, and no
+    ``wgmma`` serialized; every WKV instance 80 registers.
 11. Training path. First the kernels' autograd ``Function``s at the train
     shapes (``train_kernel_grads``): ``flash_attention_mma`` at qwen2's
     train shape, q (4, 14, 4,096, 64) and k/v (4, 2, 4,096, 64) in bf16,
@@ -292,10 +303,10 @@ plain version):
     all-reduce over the data-parallel group, 16 ranks on 16 x 16 and 32
     (pod x data) on 2 x 16 x 16.
 16. A ``{"kernels": [...]}`` line with every C entry point (its launches
-    are those of every main-path run above: lookups, chain hops, prefills,
-    the float32 consistency prefills, the train and elastic steps, the
-    dkv mirror's lookups and the pipelined runs; each
-    entry point but ``wkv`` and the device route of ``chunk_gather`` must
+    are those of every main-path run above: lookups, chain hops, prefills
+    (rwkv6-7b's 8-token one too), the float32 consistency prefills, the
+    train and elastic steps, the dkv mirror's lookups and the pipelined
+    runs; each entry point but the device route of ``chunk_gather`` must
     have launched there), then as the last line ``{"ok": true, "device":
     {...}}``.
 """
@@ -432,7 +443,7 @@ REPLACES = {
 ENTRY_POINTS = tuple(SOURCES)
 #: entry points that no main-path run launches: each is held against its
 #: plain version and timed at its own shape
-OFF_MAIN_PATH = ("chunk_gather", "wkv")
+OFF_MAIN_PATH = ("chunk_gather",)
 #: the deployment the main path runs (see the module docstring)
 REAL_SIZE = dict(n_buckets=524_287, shard_buckets=131_071, n_shards=4,
                  nslot=8, vdim=256, n_keys=1_000_000,
@@ -446,11 +457,13 @@ CHAIN_SIZE = dict(ks=(8, 32, 64), payload_bytes=1024, slab_payloads=16,
 #: route each prefill must launch once an attention call (``attn_calls``);
 #: full depth but for deepseek-v2, whose 60 layers (~470 GB of bf16
 #: weights) do not fit one card: it runs its dense first layer and 3 MoE
-#: layers (~26 GB), a cut the phase prints as ``reduced``
+#: layers (~26 GB), a cut the phase prints as ``reduced``. rwkv6-7b also
+#: serves its prompts cut to 8 tokens (a chat turn), on the same parameters
+#: and steps, through the masked route (``short_prompt``, ``short_route``)
 SERVE_SIZE = (dict(arch="qwen2_0_5b", batch=8, prompt=512, max_len=1024,
                    route="flash_attention_mma"),
               dict(arch="rwkv6_7b", batch=4, prompt=512, max_len=1024,
-                   route="wkv_split"),
+                   route="wkv_split", short_prompt=8, short_route="wkv"),
               dict(arch="olmoe_1b_7b", batch=4, prompt=512, max_len=1024,
                    route="flash_attention_mma"),
               dict(arch="deepseek_v2_236b", batch=4, prompt=512,
@@ -474,6 +487,10 @@ CONSISTENCY = {
     "seamless_m4t_medium": dict(route="flash_attention"),
 }
 CONSISTENCY_SIZE = dict(s=544, cut=512, tol=1e-3, seed=1)
+#: and rwkv6-7b's short case: its prefill of 8 tokens runs the masked
+#: ``wkv`` (chunk 8), the teacher-forced pass over 16 ``wkv_split``
+CONSISTENCY_SHORT = dict(arch="rwkv6_7b", s=16, cut=8, route="wkv_split",
+                         prefill_route="wkv")
 #: a routing decision that differs between the teacher-forced pass and
 #: decode is a fault unless the probabilities of the k-th and the
 #: (k+1)-th expert lie closer than this (float32 rounding of the logits)
@@ -1687,25 +1704,53 @@ FLASH_CASES = (
      0.5),
 )
 #: (label, b, h, s, dk, dv, dtype of r/k/v, dtype of logw, strong decay,
-#: from a non-zero state)
+#: from a non-zero state, chunk (the scan's is min(chunk, s)))
 WKV_CASES = (
-    ("sweep 1", 2, 3, 128, 16, 16, "float32", "float32", False, False),
-    ("sweep 2", 1, 2, 64, 32, 32, "float32", "float32", False, False),
-    ("sweep 3", 1, 1, 256, 64, 64, "float32", "float32", False, False),
-    ("sweep 4", 2, 2, 96, 16, 32, "float32", "float32", False, False),
+    ("sweep 1", 2, 3, 128, 16, 16, "float32", "float32", False, False, 16),
+    ("sweep 2", 1, 2, 64, 32, 32, "float32", "float32", False, False, 16),
+    ("sweep 3", 1, 1, 256, 64, 64, "float32", "float32", False, False, 16),
+    ("sweep 4", 2, 2, 96, 16, 32, "float32", "float32", False, False, 16),
     ("strong decay -4.25", 1, 2, 64, 16, 16, "float32", "float32", True,
-     False),
+     False, 16),
     # the clamp on the split route, whose TF32 operands meet e^{+-68}
     ("strong decay -4.25, 64 x 64", 1, 2, 64, 64, 64, "float32", "float32",
-     True, False),
+     True, False, 16),
     ("strong decay -4.25, 64 x 64 bf16", 1, 2, 64, 64, 64, "bfloat16",
-     "float32", True, False),
+     "float32", True, False, 16),
     ("rwkv6-7b prefill", 4, 64, 512, 64, 64, "bfloat16", "float32", False,
-     False),
+     False, 16),
     ("rwkv6-7b prefill fp32", 4, 64, 512, 64, 64, "float32", "float32",
-     False, False),
+     False, False, 16),
     ("rwkv6-7b train microbatch", 2, 64, 1024, 64, 64, "bfloat16",
-     "float32", False, True),
+     "float32", False, True, 16),
+    # the masked route: rwkv6-7b's short prompts (C = 8, 1, 13), chunks
+    # below 16, unequal narrow heads, the clamp at 32 x 32, a given state
+    ("rwkv6-7b 8-token prompt", 4, 64, 8, 64, 64, "bfloat16", "float32",
+     False, False, 16),
+    ("8 tokens fp32", 4, 2, 8, 64, 64, "float32", "float32", False, False,
+     8),
+    ("1 token (C = 1)", 2, 2, 1, 64, 64, "float32", "float32", False, False,
+     1),
+    ("1 token bf16", 2, 2, 1, 64, 64, "bfloat16", "bfloat16", False, True,
+     16),
+    ("13 tokens (C = 13)", 1, 2, 13, 64, 64, "float32", "float32", False,
+     False, 13),
+    ("13 tokens bf16", 1, 2, 13, 64, 64, "bfloat16", "float32", False, True,
+     16),
+    ("chunk 8", 1, 2, 64, 64, 64, "float32", "float32", False, False, 8),
+    ("chunk 8, state", 1, 2, 64, 64, 64, "float32", "float32", False, True,
+     8),
+    ("24 x 40, chunk 12", 1, 2, 48, 24, 40, "float32", "float32", False,
+     False, 12),
+    ("24 x 40, chunk 12 bf16", 1, 2, 48, 24, 40, "bfloat16", "bfloat16",
+     False, True, 12),
+    ("strong decay -4.25, 32 x 32", 1, 2, 64, 32, 32, "float32", "float32",
+     True, False, 16),
+    ("strong decay -4.25, 32 x 32 bf16", 1, 2, 64, 32, 32, "bfloat16",
+     "float32", True, False, 16),
+    # dv not a multiple of 4: the final state stored by floats
+    ("7 x 5, chunk 8, state", 2, 3, 24, 7, 5, "float32", "float32", False,
+     True, 8),
 )
 
 
@@ -1787,23 +1832,24 @@ def model_kernel_parity(device) -> dict:
               f"flash_attention {dtype}: the result depends on bq/bk")
         _within(o1, flash_attention_ref(q, k, v), tol, tol,
                 f"flash_attention {dtype} block shapes")
-    for (label, b, h, s, dk, dv, dtype, wdtype, strong,
-         with_state) in WKV_CASES:
+    for (label, b, h, s, dk, dv, dtype, wdtype, strong, with_state,
+         chunk) in WKV_CASES:
         r, k, v, logw, u = _wkv_inputs(gen, device, b, h, s, dk, dv, dtype,
                                        wdtype, strong)
         s0 = (torch.randn((b, h, dk, dv), generator=gen, device=device)
               * 0.5 if with_state else None)
-        (o, state), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw,
-                                                            u, s0))
-        check(route == wkv_route(dk, dv, min(16, s)),
+        (o, state), route = _route_of_call(lambda: wkv_cuda(
+            r, k, v, logw, u, s0, chunk=chunk))
+        check(route == wkv_route(dk, dv, min(chunk, s)),
               f"wkv {label} ran {route}")
         cases.setdefault(route, []).append(label)
-        again = wkv_cuda(r, k, v, logw, u, s0)
+        again = wkv_cuda(r, k, v, logw, u, s0, chunk=chunk)
         check(torch.equal(again[0], o) and torch.equal(again[1], state),
               f"wkv {label}: two calls differ")
         zero = torch.zeros((b, h, dk, dv), device=device)
         want_o, want_state = wkv_chunked_ref(r, k, v, logw, u,
-                                             zero if s0 is None else s0)
+                                             zero if s0 is None else s0,
+                                             chunk=chunk)
         check(o.dtype == r.dtype and state.dtype == torch.float32,
               f"wkv {label}: {o.dtype} / {state.dtype}")
         otol = 2e-2 if dtype == "bfloat16" else 5e-4
@@ -1949,9 +1995,10 @@ def _routing_report(full: list, pre: list, steps: list, cut: int,
 def profile_busy(fn, device, match: str, top: int = 0) -> dict:
     """Run ``fn`` once under ``torch.profiler``: its host wall time, the
     card's busy time (the union of its kernel and copy spans), the time of
-    the kernels whose name contains ``match``, the idle share and, with
-    ``top``, the ``top`` device functions by total time. The profiler's own
-    cost is inside the wall time."""
+    the kernels whose name contains ``match``, the idle share, the name of
+    the device function just before each of those kernels (``before``)
+    and, with ``top``, the ``top`` device functions by total time. The
+    profiler's own cost is inside the wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1970,6 +2017,9 @@ def profile_busy(fn, device, match: str, top: int = 0) -> dict:
                      if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_us = sum(e.time_range.elapsed_us() for e in device_events
                     if match and match in e.name)
+    in_order = sorted(device_events, key=lambda e: e.time_range.start)
+    before = [in_order[i - 1].name[:90] if i else None
+              for i, e in enumerate(in_order) if match and match in e.name]
     by_name: dict = {}
     for e in device_events:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -1977,6 +2027,7 @@ def profile_busy(fn, device, match: str, top: int = 0) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(wall_ms=wall_s * 1e3, busy_ms=busy_us / 1e3,
                 kernel_ms=kernel_us / 1e3, device_events=len(spans),
+                before=before,
                 idle_share=(1 - busy_us / (wall_s * 1e6)) if spans else None,
                 top=[dict(name=name[:90], ms=ms, count=n)
                      for name, (ms, n) in ranked])
@@ -1989,6 +2040,7 @@ def _fmt_idle(r: dict) -> str:
 
 def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
                 worker_steps, seed, route=None, n_layers=None,
+                short_prompt=None, short_route=None,
                 config=get_config) -> dict:
     """One published model at full width in bf16 (the config's dtype), at
     full depth or at ``n_layers`` (printed as ``reduced``), parameters
@@ -2001,9 +2053,11 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
     each of the three and read just after; on the card the prefill must
     launch ``route`` once an attention call (``attn_calls``) and nothing
     else. Then the times, while the model is on the card, and the peak of
-    the card's allocated memory over the phase. ``config`` maps the arch
-    to its config (the tests rehearse this phase on the CPU with the smoke
-    configs)."""
+    the card's allocated memory over the phase. With ``short_prompt``, the
+    same prompts cut to that many tokens go through the same steps and
+    parameters (:func:`serve_short`, its prefill on ``short_route``).
+    ``config`` maps the arch to its config (the tests rehearse this phase
+    on the CPU with the smoke configs)."""
     cfg, reduced = _cut(config(arch), n_layers)
     on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -2136,15 +2190,89 @@ def serve_model(device, *, arch, batch, prompt, max_len, decode_steps,
               f"top device functions (ms, count): "
               + "; ".join(f"{t['name']} {t['ms']:.3f} x{t['count']}"
                           for t in p["top"]))
+    if short_prompt:
+        r["short"] = serve_short(device, cfg, params,
+                                 tokens[:, :short_prompt].contiguous(),
+                                 prefill_step, step, route=short_route,
+                                 decode_steps=worker_steps, arch=arch)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return r
 
 
+def serve_short(device, cfg, params, tokens, prefill_step, step, *, route,
+                decode_steps, arch) -> dict:
+    """A short prompt (rwkv6-7b's chat turn) through ``serve_model``'s own
+    prefill and decode steps, on its parameters: on the card the prefill
+    must launch ``route`` once an attention call and nothing else, with no
+    copy kernel just before any of its launches (the masked WKV route reads
+    the model's head-transposed views as they are); then ``decode_steps``
+    greedy steps, which launch nothing. Times: the prefill's wall (median
+    of 3 after an untimed call, each ending in a synchronize), its busy
+    time, idle share and top device functions (``torch.profiler``), and the
+    decode step's wall."""
+    batch, n = tokens.shape
+    on_card = torch.device(device).type == "cuda"
+    batch_in = {"tokens": tokens}
+    _build.launches.clear()
+    logits, cache = prefill_step(params, batch_in)
+    _sync(device)
+    launches = dict(_build.launches)
+    want = {route: attn_calls(cfg)} if on_card else {}
+    check(launches == want,
+          f"{arch} {n}-token prefill launched {launches}, expected {want}")
+    check(logits.shape == (batch, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} {n}-token prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    _build.launches.clear()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        logits, cache = step(params, cache, tok, n + i)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / decode_steps
+    check(dict(_build.launches) == {} and bool(torch.isfinite(logits).all())
+          and 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab,
+          f"{arch} decode after the {n}-token prefill: launched "
+          f"{dict(_build.launches)}, tokens in [{int(tok.min())}, "
+          f"{int(tok.max())}]")
+    del cache, logits
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        prefill_step(params, batch_in)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_busy(lambda: prefill_step(params, batch_in), device,
+                        KERNEL_SYMBOLS.get(route), top=6)
+    copies = [b for b in prof["before"] if b and "copy" in b.lower()]
+    check(not copies, f"{arch} {n}-token prefill: a copy kernel just before "
+          f"{route}: {copies}")
+    r = dict(prompt=n, batch=batch, prefill_launches=launches,
+             prefill_ms=statistics.median(walls[1:]), prefill_walls_ms=walls,
+             decode_steps=decode_steps, decode_ms_per_step=decode_ms,
+             prefill_profile=prof)
+    print(f"serve {arch} {batch} x {n}-token prompts (the same parameters "
+          f"and steps): prefill launched {launches}; {decode_steps} decode "
+          f"steps launched nothing, {decode_ms:.3f} ms a step; prefill "
+          f"median {r['prefill_ms']:.3f} ms (walls "
+          f"{[round(w, 3) for w in walls]} ms, first untimed); profiled: "
+          f"wall {prof['wall_ms']:.3f} ms, card busy {prof['busy_ms']:.3f} ms "
+          f"over {prof['device_events']} device spans ({route} kernel "
+          f"{prof['kernel_ms']:.3f} ms), idle share {_fmt_idle(prof)}; "
+          f"device function before each {route} launch: "
+          f"{sorted(set(map(str, prof['before'])))}; top device functions "
+          f"(ms, count): " + "; ".join(f"{t['name']} {t['ms']:.3f} "
+                                       f"x{t['count']}" for t in prof["top"]))
+    return r
+
+
 # ------------------------------------ 10. prefill -> decode consistency
 def consistency(device, *, arch, s, cut, tol, seed, route=None,
-                n_layers=None, config=get_config) -> dict:
+                prefill_route=None, n_layers=None, config=get_config) -> dict:
     """The port of ``tests/test_models.py::test_prefill_decode_consistency``
     at full width in float32 (TF32 off), with the reference's settings (a
     no-drop capacity of 1000 for MoE): the teacher-forced logits of
@@ -2154,10 +2282,11 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
     recurrences), at atol = rtol = ``tol``, every layer (or ``n_layers``).
     The encoder-decoder's encoder reads ``cut`` random frames. On the card
     forward_full and prefill must launch ``route`` once an attention call
-    each and nothing else. For MoE, every routing decision of the prefill
-    and of each decode step is compared with the teacher-forced pass's for
-    the same position; one that differs is a fault unless its margin is
-    below ``ROUTING_TIE``."""
+    each (the prefill ``prefill_route`` where it is given: rwkv6's
+    shorter-than-a-chunk prefill) and nothing else. For MoE, every routing
+    decision of the prefill and of each decode step is compared with the
+    teacher-forced pass's for the same position; one that differs is a
+    fault unless its margin is below ``ROUTING_TIE``."""
     cfg, reduced = _cut(config(arch), n_layers)
     cfg = dataclasses.replace(cfg, dtype="float32")
     if cfg.n_experts:
@@ -2180,8 +2309,10 @@ def consistency(device, *, arch, s, cut, tol, seed, route=None,
     full_launches = dict(_build.launches)
     shape_launches = {_call_key(*key): n for key, n
                       in sorted(launches_by_shape.items())}
-    want = {route: 2 * attn_calls(cfg)} \
-        if torch.device(device).type == "cuda" else {}
+    want = collections.Counter()
+    if torch.device(device).type == "cuda":
+        want[route] += attn_calls(cfg)
+        want[prefill_route or route] += attn_calls(cfg)
     check(full_launches == want,
           f"consistency {arch}: forward_full + prefill launched "
           f"{full_launches}")
@@ -2258,6 +2389,9 @@ FLASH_MMA_DPS = FLASH_F32_DPS
 #: pair: float/float, bf16/float, bf16/bf16, float/bf16
 WKV_SPLIT_INSTANCES = tuple(f"wkv_split_kernelI{t}" for t in (
     "ff", "13__nv_bfloat16f", "13__nv_bfloat16S1_", "f13__nv_bfloat16"))
+#: and the masked instantiation's (the ``wkv`` route), one a pair too
+WKV_MASKED_INSTANCES = tuple(f"wkv_kernelI{t}" for t in (
+    "ff", "13__nv_bfloat16f", "13__nv_bfloat16S1_", "f13__nv_bfloat16"))
 #: the registers a thread of each of them must start with: its setmaxnreg
 #: split (kPrepRegs = 64 for 256 prep threads, kStateRegs = 112 for 128
 #: state threads in wkv.cu) redistributes 384 x 80; with fewer,
@@ -2277,7 +2411,7 @@ PTXAS_GATED_INSTANCES = (*(f"flash_mma_kernelILi{dp}E"
 #: the libraries whose kernels ``ptxas_phase`` reports, and those kernels
 PTXAS_LIBRARIES = ("flash_attention", "wkv", "race_lookup", "serverless_stage")
 PTXAS_KERNELS = ("flash_mma_kernel", "flash_kernel", "wkv_split_kernel",
-                 *set(PTXAS_GATED.values()))
+                 "wkv_kernel", *set(PTXAS_GATED.values()))
 
 
 def _instance(name: str, kernels):
@@ -2357,6 +2491,15 @@ def _wkv_work(r, k, v, logw, u, state, o, c):
     return nbytes, per_chunk * b * h * (s // c)
 
 
+#: (label, B, S, chunk, dtype of r/k/v): the shapes at which
+#: ``measure_model_kernels`` times ``wkv`` (H = 64, 64 x 64 heads, the
+#: model's views, logw float32): rwkv6-7b's 8-token prompt (the serve
+#: phase's short prefill; the headline), one token, 13 tokens, and a
+#: 512-token prompt scanned in chunks of 8
+WKV_SHAPES = (("8-token prompt", 4, 8, 16, "bfloat16"),
+              ("1-token prompt", 4, 1, 16, "bfloat16"),
+              ("13-token prompt", 4, 13, 16, "bfloat16"),
+              ("512 tokens, chunk 8", 4, 512, 8, "bfloat16"))
 #: (label, B, S, dtype of r/k/v, from a non-zero state): the shapes at
 #: which ``measure_model_kernels`` times ``wkv_split`` (H = 64, 64 x 64
 #: heads): rwkv6-7b's prefill by batch, in float32, its training microbatch
@@ -2367,16 +2510,18 @@ WKV_SPLIT_SHAPES = (("prefill, B = 1", 1, 512, "bfloat16", False),
                     ("train microbatch", 2, 1024, "bfloat16", True))
 
 
-def _wkv_split_bounds(r, k, v, logw, u, state_in, o, state_out) -> dict:
-    """The bound of one WKV scan on the units the split route runs it on:
-    the larger of the bytes (the initial state read where one is given)
-    over 3.35 TB/s and the operations, ``ops_ms``. Of these the four
-    products (the scores, att v, r_dec S, k_fin^T v) run on the tensor
-    cores as three TF32 passes, at 495 / 3 TFLOP/s, and the rest (decay
-    factors, bonus, the state's scale) on the CUDA cores at 67 TFLOP/s,
-    beside them: ``ops_ms`` is the larger of the two. ``fp32_ops_ms``, every
-    operation at 67 TFLOP/s, is shown for reference only."""
-    c = 16
+def _wkv_split_bounds(r, k, v, logw, u, state_in, o, state_out,
+                      c=16) -> dict:
+    """The bound of one WKV scan in chunks of ``c`` on the units both WKV
+    routes run it on: the larger of the bytes (the initial state read where
+    one is given) over 3.35 TB/s and the operations, ``ops_ms``. Of these
+    the four products (the scores, att v, r_dec S, k_fin^T v) run on the
+    tensor cores as three TF32 passes, at 495 / 3 TFLOP/s, and the rest
+    (decay factors, bonus, the state's scale) on the CUDA cores at 67
+    TFLOP/s, beside them: ``ops_ms`` is the larger of the two. The work is
+    the useful dk x dv x c, not the masked route's padding to 64 x 64 x 16.
+    ``fp32_ops_ms``, every operation at 67 TFLOP/s, is shown for reference
+    only."""
     nbytes, flops = _wkv_work(r, k, v, logw, u, state_out, o, c)
     if state_in is not None:
         nbytes += state_in.numel() * state_in.element_size()
@@ -2597,9 +2742,9 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
     ``flash_shapes`` (``measure_flash_shapes``); ``flash_attention`` is
     timed at every ``FLASH_F32_SHAPES`` shape, each with the launches
     that the consistency run ``by_arch`` counted there
-    (:func:`f32_row_launches`), and headed by its first. The
-    one-CTA-a-head ``wkv``, on no main-path run, at rwkv6-7b's heads over
-    an 8-token prompt (one chunk of 8)."""
+    (:func:`f32_row_launches`), and headed by its first. The masked
+    ``wkv`` at rwkv6-7b's heads on the model's views at ``WKV_SHAPES``,
+    headed by the serve phase's 8-token prompt (one chunk of 8)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=device).manual_seed(9)
     sdpa = F.scaled_dot_product_attention
@@ -2712,26 +2857,45 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
         **_wkv_split_bounds(r, k, v, logw, u, None, o, st))
     del r, k, v, logw, o, st, contig, want_o, want_st
 
-    # wkv (one CTA a head, on no main-path run) at rwkv6-7b's heads over an
-    # 8-token prompt: one chunk of 8
-    s = c = 8
-    r, k, v, logw, u = (t.contiguous() for t in _wkv_views(
-        gen, device, b, h, s, dk))
-    (o, st), route = _route_of_call(lambda: wkv_cuda(r, k, v, logw, u))
-    check(route == "wkv", f"a {s}-token scan ran {route}")
-    zero = torch.zeros((b, h, dk, dk), device=device)
-    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, zero)
-    _within(o, want_o, 2e-2, 2e-2, "wkv o vs plain")
-    _within(st, want_st, 5e-4, 1e-3, "wkv state vs plain")
-    out["wkv"] = dict(
-        shape=f"r/k/v ({b}, {h}, {s}, {dk}) bf16, logw float32, chunk {c}",
-        route=route, ms=device_ms(lambda: wkv_cuda(r, k, v, logw, u), 50,
-                                  device),
-        plain_ms=device_ms(_graphed(
-            lambda: wkv_chunked_ref(r, k, v, logw, u, zero), device), 20,
-            device),
-        library_ms=None, library="none", ctas=b * h,
-        **_bound(*_wkv_work(r, k, v, logw, u, st, o, c), FP32_FLOP_PER_S))
+    # wkv (the masked instantiation) at rwkv6-7b's heads on the model's
+    # views: the serve phase's 8-token prompt (the headline, also on
+    # contiguous copies), one token, 13 tokens, 512 tokens in chunks of 8
+    by_shape = []
+    for label, bb, ss, chunk, dtype in WKV_SHAPES:
+        c = min(chunk, ss)
+        views = _wkv_views(gen, device, bb, h, ss, dk, dtype)
+        zero = torch.zeros((bb, h, dk, dk), device=device)
+        (o, st), route = _route_of_call(lambda: wkv_cuda(*views,
+                                                         chunk=chunk))
+        check(route == "wkv", f"wkv {label} ran {route}")
+        want_o, want_st = wkv_chunked_ref(*views, zero, chunk=chunk)
+        err = max(_within(o, want_o, 2e-2, 2e-2, f"wkv {label} o vs plain"),
+                  _within(st, want_st, 5e-4, 1e-3,
+                          f"wkv {label} state vs plain"))
+        contig = [t.contiguous() for t in views[:4]] + [views[4]]
+        kern = lambda: wkv_cuda(*views, chunk=chunk)  # noqa: E731
+        turns = [device_ms(f, 50, device) for f in (
+            kern, lambda: wkv_cuda(*contig, chunk=chunk), kern)]
+        by_shape.append(dict(
+            label=label, route=route, max_abs_err=err,
+            shape=f"r/k/v ({bb}, {h}, {ss}, {dk}) {dtype} head-transposed "
+                  f"views, logw float32, chunk {c}",
+            ms=turns[0], ms_turns=turns[0::2], contiguous_ms=turns[1],
+            plain_ms=device_ms(_graphed(lambda: wkv_chunked_ref(
+                *views, zero, chunk=chunk), device), 10, device),
+            library_ms=None, library="none", ctas=bb * h,
+            **_wkv_split_bounds(*views, None, o, st, c)))
+        del views, contig, zero, o, st, want_o, want_st
+    for row in by_shape:
+        print(f"time wkv at {row['label']}, {row['shape']}: {row['ms']:.6f} "
+              f"ms (turns {row['ms_turns']}; contiguous copies "
+              f"{row['contiguous_ms']:.6f}), {row['ms'] / row['bound_ms']:.3f}"
+              f" x its bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+              f"{row['bytes']} B take {row['bytes_ms']:.6f} ms; "
+              f"{row['flops']} FLOP take {row['ops_ms']:.6f} ms with the "
+              f"{row['product_flops']} of the products as split TF32); plain "
+              f"{row['plain_ms']:.6f} ms")
+    out["wkv"] = dict(by_shape[0], timed_shapes=by_shape[1:])
 
     for name, m in out.items():
         lib = (f"{m['library_ms']:.6f} ms (kernel / library "
@@ -2751,9 +2915,10 @@ def measure_model_kernels(device, flash_shapes, by_arch) -> dict:
 
 def ptxas_phase() -> dict:
     """Print the ptxas report of every redesigned kernel; fail unless each
-    gated one (``PTXAS_GATED``, ``PTXAS_GATED_INSTANCES``) has a 0-byte
-    stack frame, no spills and no serialized wgmma, and each split WKV
-    instance ``WKV_SPLIT_REGISTERS``. Returns the report by entry point."""
+    gated one (``PTXAS_GATED``, ``PTXAS_GATED_INSTANCES``,
+    ``WKV_MASKED_INSTANCES``) has a 0-byte stack frame, no spills and no
+    serialized wgmma, and each WKV instance, split and masked,
+    ``WKV_SPLIT_REGISTERS``. Returns the report by entry point."""
     ptxas = {}
     for lib in PTXAS_LIBRARIES:
         ptxas.update(ptxas_report(
@@ -2768,7 +2933,8 @@ def ptxas_gate(ptxas: dict) -> dict:
     instance; returns them by entry point."""
     by_entry = {"flash_attention_mma": "flash_mma_kernel",
                 "flash_attention": "flash_kernel",
-                "wkv_split": "wkv_split_kernel", **PTXAS_GATED}
+                "wkv_split": "wkv_split_kernel", "wkv": "wkv_kernel",
+                **PTXAS_GATED}
     out = {entry: {fn: rep for fn, rep in ptxas.items()
                    if fn.startswith(kernel)}
            for entry, kernel in by_entry.items()}
@@ -2776,10 +2942,10 @@ def ptxas_gate(ptxas: dict) -> dict:
              for fn, rep in out[entry].items()}
     for entry in PTXAS_GATED:
         check(out[entry], f"ptxas: no report of {entry}'s kernel")
-    for fn in PTXAS_GATED_INSTANCES:
+    for fn in (*PTXAS_GATED_INSTANCES, *WKV_MASKED_INSTANCES):
         check(fn in ptxas, f"ptxas: no report of {fn}")
         gated[fn] = ptxas[fn]
-    for fn in WKV_SPLIT_INSTANCES:
+    for fn in (*WKV_SPLIT_INSTANCES, *WKV_MASKED_INSTANCES):
         check(ptxas[fn].get("registers") == WKV_SPLIT_REGISTERS,
               f"ptxas {fn}: {ptxas[fn].get('registers')} registers, not the "
               f"{WKV_SPLIT_REGISTERS} its setmaxnreg split redistributes")
@@ -3691,6 +3857,17 @@ def gateway_phase(traces: dict, response: dict) -> dict:
     return res
 
 
+def _short_summary(r: dict) -> dict:
+    """A short-prompt serve (``serve_short``) for the ``kernels`` line."""
+    p = r["prefill_profile"]
+    return dict(prompt=r["prompt"], batch=r["batch"],
+                prefill_launches=r["prefill_launches"],
+                prefill_ms=r["prefill_ms"],
+                decode_ms_per_step=r["decode_ms_per_step"],
+                busy_ms=p["busy_ms"], kernel_ms=p["kernel_ms"],
+                idle_share=p["idle_share"], top=p["top"])
+
+
 def _run_summary(r: dict) -> dict:
     """The serving phase's numbers of one model, for the ``kernels`` line."""
     keys = ("n_layers", "reduced", "n_params", "peak_memory_bytes",
@@ -4211,8 +4388,8 @@ def main(argv) -> int:
           "torch.backends.cudnn.allow_tf32 = False (float32 products in "
           "full float32)")
     build_kernels()
-    # before any launch: a split WKV instance without the registers its
-    # setmaxnreg split needs would hang the card, not fail
+    # before any launch: a WKV instance (split or masked) without the
+    # registers its setmaxnreg split needs would hang the card, not fail
     ptxas = ptxas_phase()
     errs = kernel_parity(device)
     errs.update(stage_parity(device))
@@ -4238,6 +4415,7 @@ def main(argv) -> int:
                               **{**CONSISTENCY_SIZE, **settings})
                   for arch, settings in CONSISTENCY.items()]
     by_arch = {row["arch"]: row for row in consistent}
+    short = consistency(device, **{**CONSISTENCY_SIZE, **CONSISTENCY_SHORT})
     flash_shapes = measure_flash_shapes(device)
     for r in flash_shapes:
         errs[r["route"]] = max(errs[r["route"]], r["max_abs_err"])
@@ -4298,7 +4476,8 @@ def main(argv) -> int:
     launches.update(dkv["launches"])
     for row in serving.values():
         launches.update(row["prefill_launches"])
-    for row in consistent:
+        launches.update(row.get("short", {}).get("prefill_launches", {}))
+    for row in (*consistent, short):
         launches.update(row["launches"])
     for row in training.values():
         launches.update(row["launches"])
@@ -4321,7 +4500,8 @@ def main(argv) -> int:
                                         training["rwkv6_7b"],
                                         recompute["rwkv6_7b"]),
                                     grad=grads["wkv_split"]),
-                  "wkv": dict(main_path=False)}
+                  "wkv": dict(serve=_short_summary(rwkv6["short"]),
+                              consistency=short)}
     # the moe, MLA, hybrid and encoder-decoder runs of each flash route,
     # and its times at their shapes: the bf16 prefills' with the prefill's
     # launches, and for flash_attention the float32 consistency's

@@ -20,11 +20,30 @@
 // C = 16: that is only safe in float32 and with C <= 16, so the kernel keeps
 // both.
 //
-// Two routes, each its own C entry point, chosen by shape:
+// One design, two instantiations, each its own C entry point and kernel,
+// chosen by shape; both read r, k, v and logw through their strides (the
+// last dimension contiguous), so the model's head-transposed views go in
+// without copies:
 //
-// wkv_split (dk = dv = 64, C = 16: rwkv6-7b's heads; any S that is a
-// multiple of 16; r, k, v and logw read through their strides, so the
-// model's head-transposed views go in without copies).
+// wkv_split (wkv_split_kernel): dk = dv = 64, C = 16, rwkv6-7b's heads over
+// any S that is a multiple of 16, with every shape known when compiled.
+//
+// wkv (wkv_kernel, the masked instantiation): every other shape, dk and dv
+// from 1 to 64 and C = min(chunk, S) from 1 to 16 (rwkv6-7b's prompts of
+// 1-15 tokens, a caller's chunk below 16, other heads). A head runs on the
+// same 64 x 64 x 16 tile, padded with zeros, which is exact for this scan:
+// zero columns of r, k and u add nothing to the scores, to r_dec S or to
+// the bonus; zero rows of k and v with a zero logw (decay e^0 = 1) leave
+// the state as it was and give rows of o that are never stored; zero
+// columns of v give columns of o and of S that are never stored; rows of
+// the state past dk start at zero and stay there. TMA writes the padding:
+// 5-d tensor maps of (d, t, chunk, h, b) with sizes (dk or dv, C, S / C, H,
+// B) and the views' strides fill whatever of a 64 x 16 box lies outside the
+// tensor with zeros, and the plain loads write the same zeros. Chunk
+// boundaries stay at multiples of C, as the reference scan puts them, and
+// where C < 16 each step is a 16-row step with 16 - C rows of zeros. Only
+// the dk x dv corner of the state and the C x dv rows of o are stored; the
+// final state goes through shared memory and out as 16-byte vectors.
 //
 // What bounds it on this card: at rwkv6-7b's prefill shape (B = 4, H = 64,
 // S = 512, bf16 r/k/v, float32 logw) the scan moves 104,873,984 bytes
@@ -81,10 +100,12 @@
 // a view and its contiguous copy give the same bits. The arrays the
 // fragments read are padded so that each load hits 32 distinct banks.
 //
-// wkv (dk, dv <= 64 and C <= 16, every shape but wkv_split's): one CTA per
-// (b, h) walks the chunks with the (dk, dv) state and the chunk's tiles in
-// shared memory (~38 KB), every loop bound known only at run time, on
-// contiguous inputs.
+// At rwkv6-7b's heads over an 8-token prompt (B = 4, H = 64, C = 8) a call
+// is one step a head: the bound is the bytes, 5,783,552 (0.0017 ms, mostly
+// the 4 MiB final state), and the time is the launch, one load -> prep ->
+// state step and the state's store. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W, in turns in tools/wkv_variants.py: 0.0065 ms, 3.8x the bound; the
+// one-CTA-a-head scalar scan this instantiation replaced took 0.0156 ms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,10 +116,6 @@
 #include <initializer_list>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxC = 16;
-constexpr int kMaxD = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -115,131 +132,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kThreads)
-wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
-           const T* __restrict__ v, const TW* __restrict__ logw,
-           const float* __restrict__ u, const float* __restrict__ state_in,
-           T* __restrict__ o, float* __restrict__ state_out, int H, int S,
-           int dk, int dv, int C) {
-  __shared__ float St[kMaxD * kMaxD];   // state (dk, dv), row-major
-  __shared__ float rs[kMaxC * kMaxD];   // r, then r e^{Lex}
-  __shared__ float ks[kMaxC * kMaxD];   // k, then k e^{L_C - Lx}
-  __shared__ float ws[kMaxC * kMaxD];   // logw, then Lex, then k e^{-Lx}
-  __shared__ float Ls[kMaxC * kMaxD];   // Lx
-  __shared__ float vs[kMaxC * kMaxD];   // v
-  __shared__ float att[kMaxC * kMaxC];  // strictly lower (C, C)
-  __shared__ float bonus[kMaxC];        // sum_j r u k per row
-  __shared__ float us[kMaxD];
-
-  const int tid = threadIdx.x;
-  const int64_t bh = blockIdx.x;
-  const int h = static_cast<int>(bh % H);
-  const int64_t base_k = bh * S * dk;  // (b, h) offset of r, k, logw
-  const int64_t base_v = bh * S * dv;  // (b, h) offset of v, o
-
-  for (int i = tid; i < dk * dv; i += kThreads)
-    St[i] = state_in ? state_in[bh * dk * dv + i] : 0.f;
-  for (int j = tid; j < dk; j += kThreads) us[j] = u[h * dk + j];
-
-  const int nchunks = S / C;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int64_t ok = base_k + static_cast<int64_t>(ci) * C * dk;
-    const int64_t ov = base_v + static_cast<int64_t>(ci) * C * dv;
-    for (int i = tid; i < C * dk; i += kThreads) {
-      rs[i] = to_f32(r[ok + i]);
-      ks[i] = to_f32(k[ok + i]);
-      ws[i] = to_f32(logw[ok + i]);
-    }
-    for (int i = tid; i < C * dv; i += kThreads) vs[i] = to_f32(v[ov + i]);
-    __syncthreads();
-
-    // inclusive cumulative log-decay down each column; the bonus per row
-    if (tid < dk) {
-      float run = 0.f;
-      for (int t = 0; t < C; ++t) {
-        const float lw = ws[t * dk + tid];
-        run += lw;
-        Ls[t * dk + tid] = run;
-        ws[t * dk + tid] = run - lw;  // Lex
-      }
-    }
-    {
-      const int warp = tid / 32, lane = tid % 32;
-      for (int t = warp; t < C; t += kThreads / 32) {
-        float s = 0.f;
-        for (int j = lane; j < dk; j += 32)
-          s += rs[t * dk + j] * us[j] * ks[t * dk + j];
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) bonus[t] = s;
-      }
-    }
-    __syncthreads();
-
-    // r e^{Lex}, k e^{-Lx} and k e^{L_C - Lx}, in place
-    for (int i = tid; i < C * dk; i += kThreads) {
-      const int j = i % dk;
-      const float lx = Ls[i];
-      const float kk = ks[i];
-      rs[i] = rs[i] * expf(ws[i]);
-      ws[i] = kk * expf(-lx);
-      ks[i] = kk * expf(Ls[(C - 1) * dk + j] - lx);
-    }
-    __syncthreads();
-
-    // intra-chunk scores, strictly lower triangular
-    for (int i = tid; i < C * C; i += kThreads) {
-      const int t = i / C, s = i % C;
-      float a = 0.f;
-      if (s < t)
-        for (int j = 0; j < dk; ++j)
-          a = fmaf(rs[t * dk + j], ws[s * dk + j], a);
-      att[i] = a;
-    }
-    __syncthreads();
-
-    // o = r_dec S + att v + bonus v
-    for (int i = tid; i < C * dv; i += kThreads) {
-      const int t = i / dv, c = i % dv;
-      float inter = 0.f;
-      for (int j = 0; j < dk; ++j)
-        inter = fmaf(rs[t * dk + j], St[j * dv + c], inter);
-      float intra = 0.f;
-      for (int s = 0; s < C; ++s)
-        intra = fmaf(att[t * C + s], vs[s * dv + c], intra);
-      o[ov + i] = from_f32<T>(inter + intra + bonus[t] * vs[i]);
-    }
-    __syncthreads();
-
-    // S = S e^{L_C} + (k e^{L_C - Lx})^T v
-    for (int i = tid; i < dk * dv; i += kThreads) {
-      const int j = i / dv, c = i % dv;
-      float add = 0.f;
-      for (int s = 0; s < C; ++s)
-        add = fmaf(ks[s * dk + j], vs[s * dv + c], add);
-      St[i] = St[i] * expf(Ls[(C - 1) * dk + j]) + add;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < dk * dv; i += kThreads)
-    state_out[bh * dk * dv + i] = St[i];
-}
-
-template <typename T, typename TW>
-int launch(const void* r, const void* k, const void* v, const void* logw,
-           const void* u, const void* state_in, void* o, void* state_out,
-           int64_t bh, int H, int S, int dk, int dv, int C,
-           cudaStream_t stream) {
-  wkv_kernel<T, TW><<<static_cast<unsigned>(bh), kThreads, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const TW*>(logw),
-      static_cast<const float*>(u), static_cast<const float*>(state_in),
-      static_cast<T*>(o), static_cast<float*>(state_out), H, S, dk, dv, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------ the split route: dk = dv = 64, chunk 16
+// ----------------------------- the tile: dk = dv = 64, chunk 16 at most
 constexpr int kDK = 64;  // key width (dk)
 constexpr int kDV = 64;  // value width (dv)
 constexpr int kC = 16;   // chunk
@@ -266,6 +159,9 @@ constexpr int kNP = 3;
 constexpr int kRS = kDK + 8;
 constexpr int kKS = kDV + 4;
 constexpr int kAS = kC + 8;
+// row stride (floats) of the final state in shared memory (the masked
+// instantiation's store): each fragment store hits 32 distinct banks
+constexpr int kSS = kDV + 4;
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kStateWarps * 16 == kDV && kPrepThreads == 2 * kDK &&
                   kDK == 64 && kC == 16 && kNS % kPrepGroups == 0 &&
@@ -287,10 +183,12 @@ struct SplitParams {
   int64_t r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int64_t w_sb, w_sh, w_ss;
   int H, S;
+  int dk, dv, C;  // the masked instantiation's shape (split: 64, 64, 16)
 };
 
-// The tensor maps of r, k, logw and v: 4-d, (d, s, h, b) with the views'
-// strides, boxes of 64 columns x 16 rows (one chunk of one head)
+// The tensor maps of r, k, logw and v, boxes of 64 columns x 16 rows (one
+// chunk of one head): 4-d, (d, s, h, b) with the views' strides (split);
+// 5-d, (d, t, chunk, h, b), zero-filled past dk or dv and past C (masked)
 struct SplitMaps {
   CUtensorMap r, k, w, v;
 };
@@ -333,6 +231,8 @@ struct SplitSmem {
 };
 // with room to align the dynamic shared memory to 128 bytes (TMA's boxes);
 // two CTAs, each with its 1 KB the system reserves, fit an SM's 228 KB
+static_assert(sizeof(float) * kDK * kSS <= sizeof(PrepStage),
+              "the masked instantiation's final state fits a prepared stage");
 template <typename T, typename TW>
 constexpr int split_smem_bytes() {
   static_assert(kSplitCtas * (sizeof(SplitSmem<T, TW>) + 128 + 1024) <=
@@ -385,6 +285,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+// the same from a 5-d map (the masked instantiation's)
+__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(smem_addr(bar))
       : "memory");
 }
 __device__ __forceinline__ void group_sync(int id, int n) {
@@ -475,10 +387,11 @@ __device__ __forceinline__ void reduce_scatter_step(float (&part)[8],
   }
 }
 
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kSplitThreads, kSplitCtas)
-wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
-                 int tma) {
+// The scan of one head a CTA; kMasked: the masked instantiation (any
+// dk, dv <= 64 and C <= 16 on the padded tile), else the split one
+template <typename T, typename TW, bool kMasked>
+__device__ __forceinline__ void wkv_scan(const SplitMaps& maps,
+                                         const SplitParams& p, int tma) {
   // a bfloat16 v is exact in TF32: its low halves are 0, and the products
   // of v drop the pass that would multiply them
   constexpr bool kVExact = sizeof(T) == 2;
@@ -491,7 +404,7 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t bh = blockIdx.x;
   const int b = static_cast<int>(bh / p.H), h = static_cast<int>(bh % p.H);
-  const int nch = p.S / kC;
+  const int nch = kMasked ? p.S / p.C : p.S / kC;
 
   if (tid == 0) {
     for (int st = 0; st < kNS; ++st) mbar_init(&sm.raw_full[st], 1);
@@ -532,15 +445,26 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
     auto issue = [&](int ci) {
       RawStage<T, TW>& rs = sm.raw[ci % kNS];
       uint64_t* full = &sm.raw_full[ci % kNS];
+      // the masked maps' boxes are whole too: TMA writes (and counts) the
+      // zeros that fill whatever of a box lies outside the tensor
       mbar_expect_tx(full, kRawBytes);
-      tma_load(rs.r, &maps.r, 0, ci * kC, h, b, full);
-      tma_load(rs.k, &maps.k, 0, ci * kC, h, b, full);
-      tma_load(rs.w, &maps.w, 0, ci * kC, h, b, full);
-      tma_load(rs.v, &maps.v, 0, ci * kC, h, b, full);
+      if constexpr (kMasked) {
+        tma_load5(rs.r, &maps.r, 0, 0, ci, h, b, full);
+        tma_load5(rs.k, &maps.k, 0, 0, ci, h, b, full);
+        tma_load5(rs.w, &maps.w, 0, 0, ci, h, b, full);
+        tma_load5(rs.v, &maps.v, 0, 0, ci, h, b, full);
+      } else {
+        tma_load(rs.r, &maps.r, 0, ci * kC, h, b, full);
+        tma_load(rs.k, &maps.k, 0, ci * kC, h, b, full);
+        tma_load(rs.w, &maps.w, 0, ci * kC, h, b, full);
+        tma_load(rs.v, &maps.v, 0, ci * kC, h, b, full);
+      }
     };
     if (tma && pt == 0)
       for (int ci = grp; ci < kNS && ci < nch; ci += kPrepGroups) issue(ci);
-    const float uj = p.u[h * kDK + j];
+    const float uj = !kMasked ? p.u[h * kDK + j]
+                     : j < p.dk ? p.u[h * p.dk + j]
+                                : 0.f;
     for (int ci = grp; ci < nch; ci += kPrepGroups) {
       const int st = ci % kNS, ps = ci % kNP;
       if (tma) {
@@ -551,13 +475,27 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
         const T* k = reinterpret_cast<const T*>(sm.head[1]);
         const TW* w = reinterpret_cast<const TW*>(sm.head[2]);
         const T* v = reinterpret_cast<const T*>(sm.head[3]);
-        for (int i = pt; i < kC * kDK; i += kPrepThreads) {
-          const int64_t t = static_cast<int64_t>(ci) * kC + i / kDK;
-          const int c = i % kDK;
-          rs.r[i] = r[t * p.r_ss + c];
-          rs.k[i] = k[t * p.k_ss + c];
-          rs.w[i] = w[t * p.w_ss + c];
-          rs.v[i] = v[t * p.v_ss + c];
+        if constexpr (kMasked) {
+          // the chunk's C rows, zeros past them and past dk or dv
+          const T zero = from_f32<T>(0.f);
+          for (int i = pt; i < kC * kDK; i += kPrepThreads) {
+            const int row = i / kDK, c = i % kDK;
+            const int64_t t = static_cast<int64_t>(ci) * p.C + row;
+            const bool in = row < p.C, ink = in && c < p.dk;
+            rs.r[i] = ink ? r[t * p.r_ss + c] : zero;
+            rs.k[i] = ink ? k[t * p.k_ss + c] : zero;
+            rs.w[i] = ink ? w[t * p.w_ss + c] : from_f32<TW>(0.f);
+            rs.v[i] = in && c < p.dv ? v[t * p.v_ss + c] : zero;
+          }
+        } else {
+          for (int i = pt; i < kC * kDK; i += kPrepThreads) {
+            const int64_t t = static_cast<int64_t>(ci) * kC + i / kDK;
+            const int c = i % kDK;
+            rs.r[i] = r[t * p.r_ss + c];
+            rs.k[i] = k[t * p.k_ss + c];
+            rs.w[i] = w[t * p.w_ss + c];
+            rs.v[i] = v[t * p.v_ss + c];
+          }
         }
         group_sync(1 + grp, kPrepThreads);
       }
@@ -683,7 +621,17 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
   const int sw = warp - kPrepGroups * kPrepWarps;
   const int c0 = 16 * sw;
   float s[kDK / 8][4];
-  {
+  if constexpr (kMasked) {
+    // the dk x dv state in the 64 x 64 tile's corner, zeros around it
+    const float* si = p.state_in + bh * p.dk * p.dv;
+#pragma unroll
+    for (int n = 0; n < kDK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * q + (e & 1), c = c0 + g + 8 * (e >> 1);
+        s[n][e] = p.state_in && j < p.dk && c < p.dv ? si[j * p.dv + c] : 0.f;
+      }
+  } else {
     const float* si = p.state_in + bh * kDK * kDV;
 #pragma unroll
     for (int n = 0; n < kDK / 8; ++n)
@@ -693,7 +641,8 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
                                   8 * (e >> 1)]
                              : 0.f;
   }
-  T* o = static_cast<T*>(p.o) + bh * static_cast<int64_t>(p.S) * kDV;
+  T* o = static_cast<T*>(p.o) +
+         bh * static_cast<int64_t>(p.S) * (kMasked ? p.dv : kDV);
   for (int ci = 0; ci < nch; ++ci) {
     const int ps = ci % kNP;
     mbar_wait(&sm.prep_full[ps], (ci / kNP) & 1);
@@ -776,26 +725,93 @@ wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     // the chunk's output while the update runs
+    if constexpr (kMasked) {
+      // its C rows and dv columns
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t t = static_cast<int64_t>(ci) * kC + 8 * nt + 2 * q +
-                          (e & 1);
-        o[t * kDV + c0 + g + 8 * (e >> 1)] =
-            from_f32<T>(ohh[nt][e] + (ohl[nt][e] + olh[nt][e]));
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int row = 8 * nt + 2 * q + (e & 1), c = c0 + g + 8 * (e >> 1);
+          if (row < p.C && c < p.dv)
+            o[(static_cast<int64_t>(ci) * p.C + row) * p.dv + c] =
+                from_f32<T>(ohh[nt][e] + (ohl[nt][e] + olh[nt][e]));
+        }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t t = static_cast<int64_t>(ci) * kC + 8 * nt + 2 * q +
+                            (e & 1);
+          o[t * kDV + c0 + g + 8 * (e >> 1)] =
+              from_f32<T>(ohh[nt][e] + (ohl[nt][e] + olh[nt][e]));
+        }
+    }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     reg_fence(s);
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.prep_empty[ps]);
   }
-  float* so = p.state_out + bh * kDK * kDV;
+  if constexpr (kMasked) {
+    // the dk x dv corner, through shared memory (the prepared stages, which
+    // every warp is done with once the state warps are past their last
+    // chunk) and out as coalesced 16-byte vectors of whole rows where dv
+    // is a multiple of 4 (each head then starts on 16 bytes), else as
+    // coalesced floats
+    constexpr int kStateThreads = 32 * kStateWarps;
+    float(*st)[kSS] = reinterpret_cast<float(*)[kSS]>(&sm.prep[0]);
+    group_sync(3, kStateThreads);
 #pragma unroll
-  for (int n = 0; n < kDK / 8; ++n)
+    for (int n = 0; n < kDK / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      so[(8 * n + 2 * q + (e & 1)) * kDV + c0 + g + 8 * (e >> 1)] = s[n][e];
+      for (int e = 0; e < 4; ++e)
+        st[8 * n + 2 * q + (e & 1)][c0 + g + 8 * (e >> 1)] = s[n][e];
+    group_sync(3, kStateThreads);
+    const int dv = p.dv, count = p.dk * dv;
+    const int tt = tid - kPrepGroups * kPrepThreads;
+    float* so = p.state_out + bh * count;
+    if (dv % 4 == 0) {
+      // thread tt takes vectors tt, tt + 128, ... in row-major order: its
+      // row and column advance by a fixed step, no division a vector
+      const int per_row = dv / 4;
+      const int drow = kStateThreads / per_row;
+      const int dcol = kStateThreads % per_row;
+      int row = tt / per_row, col = tt % per_row;
+      for (int m = tt; m < count / 4; m += kStateThreads) {
+        *reinterpret_cast<float4*>(so + 4 * m) =
+            *reinterpret_cast<const float4*>(&st[row][4 * col]);
+        row += drow;
+        col += dcol;
+        if (col >= per_row) col -= per_row, ++row;
+      }
+    } else {
+      for (int i = tt; i < count; i += kStateThreads)
+        so[i] = st[i / dv][i % dv];
+    }
+  } else {
+    float* so = p.state_out + bh * kDK * kDV;
+#pragma unroll
+    for (int n = 0; n < kDK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        so[(8 * n + 2 * q + (e & 1)) * kDV + c0 + g + 8 * (e >> 1)] = s[n][e];
+  }
+}
+
+// rwkv6-7b's heads in chunks of 16: every shape known when compiled
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kSplitThreads, kSplitCtas)
+wkv_split_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
+                 int tma) {
+  wkv_scan<T, TW, false>(maps, p, tma);
+}
+
+// every other shape, on the padded tile
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kSplitThreads, kSplitCtas)
+wkv_kernel(const __grid_constant__ SplitMaps maps, const SplitParams p,
+           int tma) {
+  wkv_scan<T, TW, true>(maps, p, tma);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (so that the library
@@ -826,40 +842,49 @@ EncodeTiled tensor_map_encoder() {
 
 // The tensor maps of one call; false where TMA cannot describe a view (the
 // producer then copies by plain loads)
-template <typename T, typename TW>
+template <typename T, typename TW, bool kMasked>
 bool encode_split_maps(SplitMaps* m, const SplitParams& p, int batch) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  auto one = [&](CUtensorMap* map, const void* ptr, int es, int64_t ss,
+  auto one = [&](CUtensorMap* map, const void* ptr, int es, int d, int64_t ss,
                  int64_t sh, int64_t sb) {
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kDK),
-                                static_cast<cuuint64_t>(p.S),
-                                static_cast<cuuint64_t>(p.H),
-                                static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss * es),
-                                   static_cast<cuuint64_t>(sh * es),
-                                   static_cast<cuuint64_t>(sb * es)};
-    const cuuint32_t box[4] = {kDK, kC, 1, 1};
-    const cuuint32_t step[4] = {1, 1, 1, 1};
+    using U64 = cuuint64_t;
+    // split: (d, s, h, b); masked: (d, t, chunk, h, b), t < C
+    const U64 dims4[4] = {static_cast<U64>(kDK), static_cast<U64>(p.S),
+                          static_cast<U64>(p.H), static_cast<U64>(batch)};
+    const U64 strides4[3] = {static_cast<U64>(ss * es),
+                             static_cast<U64>(sh * es),
+                             static_cast<U64>(sb * es)};
+    const U64 dims5[5] = {static_cast<U64>(d), static_cast<U64>(p.C),
+                          static_cast<U64>(p.S / p.C), static_cast<U64>(p.H),
+                          static_cast<U64>(batch)};
+    const U64 strides5[4] = {
+        static_cast<U64>(ss * es), static_cast<U64>(p.C * ss * es),
+        static_cast<U64>(sh * es), static_cast<U64>(sb * es)};
+    const cuuint32_t box[5] = {kDK, kC, 1, 1, 1};
+    const cuuint32_t step[5] = {1, 1, 1, 1, 1};
     return encode(map,
                   es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  4, const_cast<void*>(ptr), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  kMasked ? 5 : 4, const_cast<void*>(ptr),
+                  kMasked ? dims5 : dims4, kMasked ? strides5 : strides4, box,
+                  step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  // out of bounds: zeros, the masked tile's padding
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   };
   constexpr int es = sizeof(T), ws = sizeof(TW);
-  return one(&m->r, p.r, es, p.r_ss, p.r_sh, p.r_sb) &&
-         one(&m->k, p.k, es, p.k_ss, p.k_sh, p.k_sb) &&
-         one(&m->w, p.logw, ws, p.w_ss, p.w_sh, p.w_sb) &&
-         one(&m->v, p.v, es, p.v_ss, p.v_sh, p.v_sb);
+  return one(&m->r, p.r, es, p.dk, p.r_ss, p.r_sh, p.r_sb) &&
+         one(&m->k, p.k, es, p.dk, p.k_ss, p.k_sh, p.k_sb) &&
+         one(&m->w, p.logw, ws, p.dk, p.w_ss, p.w_sh, p.w_sb) &&
+         one(&m->v, p.v, es, p.dv, p.v_ss, p.v_sh, p.v_sb);
 }
 
-template <typename T, typename TW>
+template <typename T, typename TW, bool kMasked>
 int launch_split(const SplitParams& p, int batch, int vec,
                  cudaStream_t stream) {
-  auto kernel = wkv_split_kernel<T, TW>;
+  auto kernel = kMasked ? wkv_kernel<T, TW> : wkv_split_kernel<T, TW>;
   constexpr int bytes = split_smem_bytes<T, TW>();
   static bool configured = false;
   if (!configured) {
@@ -874,11 +899,39 @@ int launch_split(const SplitParams& p, int batch, int vec,
   }
   SplitMaps maps;
   memset(&maps, 0, sizeof maps);
-  const int tma = vec && encode_split_maps<T, TW>(&maps, p, batch) ? 1 : 0;
+  const int tma =
+      vec && encode_split_maps<T, TW, kMasked>(&maps, p, batch) ? 1 : 0;
   const int64_t bh = static_cast<int64_t>(batch) * p.H;
   kernel<<<static_cast<unsigned>(bh), kSplitThreads, bytes, stream>>>(
       maps, p, tma);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entry points: the route's checks done, pick TMA or the plain loads
+// and the instance of (dtype, wdtype)
+template <bool kMasked>
+int dispatch(const SplitParams& p, int B, int dtype, int wdtype,
+             void* stream) {
+  // 16-byte strides and bases: TMA; else the producer's plain loads
+  const int es = dtype == 0 ? 4 : 2, ws = wdtype == 0 ? 4 : 2;
+  bool vec = true;
+  for (int64_t st : {p.r_sb, p.r_sh, p.r_ss, p.k_sb, p.k_sh, p.k_ss, p.v_sb,
+                     p.v_sh, p.v_ss})
+    vec = vec && (st * es) % 16 == 0;
+  for (int64_t st : {p.w_sb, p.w_sh, p.w_ss}) vec = vec && (st * ws) % 16 == 0;
+  for (const void* ptr : {p.r, p.k, p.v, p.logw})
+    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const int vi = vec ? 1 : 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && wdtype == 0)
+    return launch_split<float, float, kMasked>(p, B, vi, s);
+  if (dtype == 1 && wdtype == 0)
+    return launch_split<__nv_bfloat16, float, kMasked>(p, B, vi, s);
+  if (dtype == 1 && wdtype == 1)
+    return launch_split<__nv_bfloat16, __nv_bfloat16, kMasked>(p, B, vi, s);
+  if (dtype == 0 && wdtype == 1)
+    return launch_split<float, __nv_bfloat16, kMasked>(p, B, vi, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -887,73 +940,49 @@ int launch_split(const SplitParams& p, int batch, int vec,
 // synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue,
 // without a launch, for an unsupported shape). dtype / wdtype: 0 float32,
 // 1 bfloat16, of r/k/v/o and of logw. state_in may be null (zero state).
+// r, k, v and logw are read through their element strides of b, h and s
+// (the last dimension contiguous); o and the states are contiguous.
 extern "C" {
 
-// The one-CTA-a-head route: every shape but the split route's own.
-int wkv(const void* r, const void* k, const void* v, const void* logw,
-        const void* u, const void* state_in, void* o, void* state_out,
-        int64_t bh, int H, int S, int dk, int dv, int C, int dtype,
-        int wdtype, void* stream) {
-  if (bh < 1 || bh > 2147483647 || H < 1 || S < 1 || C < 1 || C > kMaxC ||
-      S % C != 0 || dk < 1 || dk > kMaxD || dv < 1 || dv > kMaxD ||
+#define WKV_ARGS                                                            \
+  const void *r, const void *k, const void *v, const void *logw,           \
+      const void *u, const void *state_in, void *o, void *state_out,       \
+      int64_t r_sb, int64_t r_sh, int64_t r_ss, int64_t k_sb, int64_t k_sh, \
+      int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t w_sb, \
+      int64_t w_sh, int64_t w_ss, int B, int H, int S, int dk, int dv,      \
+      int C, int dtype, int wdtype, void *stream
+#define WKV_PARAMS                                                          \
+  SplitParams p {                                                          \
+    r, k, v, logw, static_cast<const float*>(u),                           \
+        static_cast<const float*>(state_in), o,                            \
+        static_cast<float*>(state_out), r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, \
+        v_sb, v_sh, v_ss, w_sb, w_sh, w_ss, H, S, dk, dv, C                \
+  }
+
+// The masked instantiation: every shape but the split route's own, dk and
+// dv from 1 to 64, C = min(chunk, S) from 1 to 16, S a multiple of C.
+int wkv(WKV_ARGS) {
+  const int64_t bh = static_cast<int64_t>(B) * H;
+  if (B < 1 || H < 1 || bh > 2147483647 || S < 1 || C < 1 || C > kC ||
+      S % C != 0 || dk < 1 || dk > kDK || dv < 1 || dv > kDV ||
       (dk == kDK && dv == kDV && C == kC))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && wdtype == 0)
-    return launch<float, float>(r, k, v, logw, u, state_in, o, state_out, bh,
-                                H, S, dk, dv, C, s);
-  if (dtype == 1 && wdtype == 0)
-    return launch<__nv_bfloat16, float>(r, k, v, logw, u, state_in, o,
-                                         state_out, bh, H, S, dk, dv, C, s);
-  if (dtype == 1 && wdtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(r, k, v, logw, u, state_in, o,
-                                                 state_out, bh, H, S, dk, dv,
-                                                 C, s);
-  if (dtype == 0 && wdtype == 1)
-    return launch<float, __nv_bfloat16>(r, k, v, logw, u, state_in, o,
-                                        state_out, bh, H, S, dk, dv, C, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  WKV_PARAMS;
+  return dispatch<true>(p, B, dtype, wdtype, stream);
 }
 
 // The split route: dk = dv = 64, C = 16, any S that is a multiple of 16.
-// r, k, v and logw are read through their element strides of b, h and s
-// (the last dimension contiguous); o and the states are contiguous.
-int wkv_split(const void* r, const void* k, const void* v, const void* logw,
-              const void* u, const void* state_in, void* o, void* state_out,
-              int64_t r_sb, int64_t r_sh, int64_t r_ss, int64_t k_sb,
-              int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-              int64_t v_ss, int64_t w_sb, int64_t w_sh, int64_t w_ss, int B,
-              int H, int S, int dk, int dv, int C, int dtype, int wdtype,
-              void* stream) {
+int wkv_split(WKV_ARGS) {
   const int64_t bh = static_cast<int64_t>(B) * H;
   if (B < 1 || H < 1 || bh > 2147483647 || S < kC || S % kC != 0 ||
       dk != kDK || dv != kDV || C != kC)
     return static_cast<int>(cudaErrorInvalidValue);
-  SplitParams p{r,    k,    v,    logw, static_cast<const float*>(u),
-                static_cast<const float*>(state_in),       o,
-                static_cast<float*>(state_out),            r_sb,
-                r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                w_sb, w_sh, w_ss, H,    S};
-  // 16-byte strides and bases: TMA; else the producer's plain loads
-  const int es = dtype == 0 ? 4 : 2, ws = wdtype == 0 ? 4 : 2;
-  bool vec = true;
-  for (int64_t st : {r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss})
-    vec = vec && (st * es) % 16 == 0;
-  for (int64_t st : {w_sb, w_sh, w_ss}) vec = vec && (st * ws) % 16 == 0;
-  for (const void* ptr : {r, k, v, logw})
-    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  const int vi = vec ? 1 : 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && wdtype == 0)
-    return launch_split<float, float>(p, B, vi, s);
-  if (dtype == 1 && wdtype == 0)
-    return launch_split<__nv_bfloat16, float>(p, B, vi, s);
-  if (dtype == 1 && wdtype == 1)
-    return launch_split<__nv_bfloat16, __nv_bfloat16>(p, B, vi, s);
-  if (dtype == 0 && wdtype == 1)
-    return launch_split<float, __nv_bfloat16>(p, B, vi, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  WKV_PARAMS;
+  return dispatch<false>(p, B, dtype, wdtype, stream);
 }
+
+#undef WKV_PARAMS
+#undef WKV_ARGS
 
 const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,8 +6,8 @@ runs the plain PyTorch version. ``device=`` takes the place of JAX's
 ``interpret=``: inputs that are numpy arrays go to that device (default:
 the CUDA card). For tensors on the CPU every impl runs the plain version;
 on a CUDA tensor ``"kernel"`` launches the kernel or raises. Tensors keep
-their strides: the kernel's wrapper reads them as they are or copies them
-for the route that needs contiguous inputs.
+their strides: the kernel's wrapper reads them as they are (a copy only
+where the last dimension is not contiguous).
 
 Gradients: as for flash attention (``kernels/flash_attention/ops.py``),
 a recorded call on CUDA tensors goes through :class:`WkvFunction`, whose

@@ -6,15 +6,19 @@ allocates ``o`` and the final state with ``torch.empty``, and launches on
 the current stream without synchronising. The library is built on first
 use (see ``kernels/_build.py``).
 
-Two routes, each its own C entry point, so that the launch counter shows
-which one ran; :func:`wkv_route` picks one from the shape, and nothing
-falls back from one to the other:
+One design, one CTA of three warpgroups a head (``csrc/wkv.cu``), in two
+instantiations, each its own C entry point, so that the launch counter
+shows which one ran; :func:`wkv_route` picks one from the shape, and
+nothing falls back from one to the other:
 
-- ``wkv_split``: dk = dv = 64 with chunk 16 (rwkv6-7b's heads), one CTA of
-  three warpgroups a head (``csrc/wkv.cu``); it reads r, k, v and logw
-  through their strides (the last dimension contiguous), so the model's
-  head-transposed views go in without copies;
-- ``wkv``: every other shape, one CTA a head, on contiguous copies.
+- ``wkv_split``: dk = dv = 64 with chunk 16 (rwkv6-7b's heads), every
+  shape known when compiled;
+- ``wkv``: every other shape (dk, dv <= 64, chunk <= 16, e.g. rwkv6-7b's
+  prompts shorter than 16 tokens), masked: each head on the same 64 x 64
+  tile in steps of 16 rows, padded with zeros.
+
+Both read r, k, v and logw through their strides (the last dimension
+contiguous), so the model's head-transposed views go in without copies.
 """
 
 from __future__ import annotations
@@ -27,11 +31,10 @@ from .. import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # r, k, v, logw, u, state_in, o, state_out, B*H, H, S, dk, dv, C,
-    # dtype, wdtype, stream
-    "wkv": (_P,) * 8 + (_L,) + (_I,) * 7 + (_P,),
-    # r, k, v, logw, u, state_in, o, state_out, the element strides of b,
-    # h and s of r, k, v and logw, B, H, S, dk, dv, C, dtype, wdtype, stream
+    # each: r, k, v, logw, u, state_in, o, state_out, the element strides
+    # of b, h and s of r, k, v and logw, B, H, S, dk, dv, C, dtype, wdtype,
+    # stream
+    "wkv": (_P,) * 8 + (_L,) * 12 + (_I,) * 8 + (_P,),
     "wkv_split": (_P,) * 8 + (_L,) * 12 + (_I,) * 8 + (_P,),
 }
 ROUTES = tuple(_SIGNATURES)
@@ -100,14 +103,10 @@ def wkv_cuda(r, k, v, logw, u, state=None, *, chunk: int = 16):
     route = wkv_route(dk, dv, c)
     u = u.float().contiguous()
     state_in = None if state is None else state.contiguous()
-    if route == "wkv_split":
-        r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous()
-                         for t in (r, k, v, logw))
-        shape = (*(st for t in (r, k, v, logw) for st in t.stride()[:3]),
-                 b, h, s, dk, dv, c)
-    else:
-        r, k, v, logw = (t.contiguous() for t in (r, k, v, logw))
-        shape = (b * h, h, s, dk, dv, c)
+    r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (r, k, v, logw))
+    shape = (*(st for t in (r, k, v, logw) for st in t.stride()[:3]),
+             b, h, s, dk, dv, c)
     lib = _build.library("wkv", _SIGNATURES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream

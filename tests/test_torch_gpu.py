@@ -1047,6 +1047,24 @@ def _wkv_inputs(cuda, b, h, s, dk, dv, dtype=torch.float32,
     (1, 2, 64, 64, 64, 16, torch.bfloat16, torch.float32, True, False),
     # rwkv6-7b's training microbatch, from a non-zero state
     (2, 64, 1024, 64, 64, 16, torch.bfloat16, torch.float32, False, True),
+    # the masked route's shapes (rwkv6-7b's short prompts, C = 1 and 13,
+    # chunks below 16, narrow and unequal heads, the clamp at 32 x 32, a
+    # given state), each in float32 and with bf16 r/k/v
+    *((*shape, dtype, torch.float32, strong, state)
+      for shape, strong, state in (
+          ((4, 2, 8, 64, 64, 8), False, False),
+          ((2, 2, 1, 64, 64, 1), False, False),
+          ((1, 2, 13, 64, 64, 13), False, False),
+          ((1, 2, 64, 64, 64, 8), False, False),
+          ((2, 3, 128, 16, 16, 16), False, False),
+          ((2, 2, 96, 16, 32, 16), False, False),
+          ((1, 2, 48, 24, 40, 12), False, False),
+          ((1, 2, 64, 32, 32, 16), True, False),
+          ((1, 2, 64, 64, 64, 8), False, True),
+          # dv not a multiple of 4: the final state's store by floats
+          ((2, 3, 24, 7, 5, 8), False, True),
+          ((1, 2, 32, 33, 30, 16), False, False))
+      for dtype in (torch.float32, torch.bfloat16)),
 ])
 def test_wkv_kernel_equals_plain(fp32_cuda, b, h, s, dk, dv, chunk, dtype,
                                  wdtype, strong, state):
@@ -1155,6 +1173,110 @@ def test_wkv_split_route_takes_views_tma_cannot_describe(fp32_cuda, dtype):
     o2, st2 = wkv_cuda(*(t.contiguous() for t in (r, k, v, logw)), u, s0)
     torch.cuda.synchronize()
     assert torch.equal(o2, o) and torch.equal(st2, st)
+
+
+def _head_views(cuda, b, s, h, dk, dv, dtype, seed):
+    """r, k, v, logw as the model hands them over: head-transposed views
+    of (B, S, H, d) projections (logw float32), u and a state."""
+    g = torch.Generator("cpu").manual_seed(seed)
+    r, k = ((torch.randn(b, s, h, dk, generator=g) * 0.4).to(
+        cuda, dtype).transpose(1, 2) for _ in range(2))
+    v = (torch.randn(b, s, h, dv, generator=g) * 0.4).to(
+        cuda, dtype).transpose(1, 2)
+    logw = torch.clamp(-torch.exp(torch.randn(b, s, h, dk, generator=g)
+                                  * 0.3 - 0.6), -4.25, -1e-6).to(
+        cuda).transpose(1, 2)
+    u = (torch.randn(h, dk, generator=g) * 0.3).to(cuda)
+    s0 = torch.randn(b, h, dk, dv, generator=g).to(cuda)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,dtype,state", [
+    (4, 64, 8, 64, 64, 16, torch.bfloat16, False),  # rwkv6-7b, 8 tokens
+    (4, 64, 1, 64, 64, 16, torch.bfloat16, False),  # one token
+    (2, 8, 13, 64, 64, 16, torch.bfloat16, True),
+    (2, 8, 64, 64, 64, 8, torch.float32, True),
+    (2, 3, 48, 32, 32, 16, torch.float32, False),
+    (1, 2, 48, 24, 40, 12, torch.bfloat16, True),
+])
+def test_wkv_route_on_head_transposed_views(fp32_cuda, b, h, s, dk, dv,
+                                            chunk, dtype, state):
+    """The masked route takes the model's head-transposed views as they
+    are: within tolerance of the plain version, the same bits as on
+    contiguous copies, and the call launches nothing but ``wkv`` (no copy
+    kernel, no allocation but o and the final state)."""
+    from torch.profiler import ProfilerActivity, profile
+    r, k, v, logw, u, s0 = _head_views(fp32_cuda, b, s, h, dk, dv, dtype,
+                                       seed=b * 100 + s)
+    s0 = s0 if state else None
+    assert s == 1 or not (r.is_contiguous() or v.is_contiguous())
+    wkv_cuda(r, k, v, logw, u, s0, chunk=chunk)       # built and warm
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, st = wkv_ops.wkv_with_state(r, k, v, logw, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv": 1}
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == allocs + 2
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert all("wkv_kernel" in name for name in kernels), kernels
+    zero = torch.zeros(b, h, dk, dv, device=fp32_cuda)
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u,
+                                      zero if s0 is None else s0,
+                                      chunk=chunk)
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    assert o.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(st, want_st, atol=5e-4, rtol=1e-3)
+    o2, st2 = wkv_cuda(*(t.contiguous() for t in (r, k, v, logw)), u, s0,
+                       chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("rows 65 apart", torch.bfloat16), ("rows 65 apart", torch.float32),
+    ("bf16 dk = 20", torch.bfloat16),
+])
+def test_wkv_route_takes_views_tma_cannot_describe(fp32_cuda, case, dtype):
+    """Views whose strides TMA cannot take: rows 65 elements apart, and
+    bf16 heads of 20 (40-byte rows). The masked route copies their chunks
+    with plain loads, padded with the zeros TMA would write: within
+    tolerance of the plain version, and the 65-apart view bit for bit what
+    its contiguous copy (by TMA) gives."""
+    g = torch.Generator("cpu").manual_seed(33)
+    if case == "rows 65 apart":
+        b, h, s, dk, dv, chunk, pad = 2, 4, 48, 32, 32, 8, 65 - 32
+    else:
+        b, h, s, dk, dv, chunk, pad = 2, 3, 40, 20, 24, 8, 0
+    r, k = ((torch.randn(b, h, s, dk + pad, generator=g) * 0.4).to(
+        fp32_cuda, dtype)[..., :dk] for _ in range(2))
+    v = (torch.randn(b, h, s, dv + pad, generator=g) * 0.4).to(
+        fp32_cuda, dtype)[..., :dv]
+    logw = torch.clamp(-torch.exp(torch.randn(b, h, s, dk + pad, generator=g)
+                                  * 0.3 - 0.6), -4.25, -1e-6).to(
+        fp32_cuda)[..., :dk]
+    u = (torch.randn(h, dk, generator=g) * 0.3).to(fp32_cuda)
+    s0 = torch.randn(b, h, dk, dv, generator=g).to(fp32_cuda)
+    assert (r.stride(2) * r.element_size()) % 16 != 0
+    _build.launches.clear()
+    o, st = wkv_cuda(r, k, v, logw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"wkv": 1}
+    want_o, want_st = wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(st, want_st, atol=5e-4, rtol=1e-3)
+    if pad:
+        o2, st2 = wkv_cuda(*(t.contiguous() for t in (r, k, v, logw)), u,
+                           s0, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(o2, o) and torch.equal(st2, st)
 
 
 def test_wkv_routes_by_shape(cuda):

@@ -137,6 +137,35 @@ def test_chip_smoke_serving_phases_rehearsed_on_cpu(arch):
         cs._within(torch.ones(3), torch.zeros(3), 1e-3, 1e-3, "probe")
 
 
+def test_chip_smoke_short_rwkv6_prompt_rehearsed_on_cpu():
+    """``chip_smoke.py``'s short rwkv6 serve (prompts cut to 8 tokens
+    through the same steps and parameters) and its short consistency case
+    (an 8-token prefill, 16 tokens teacher-forced), at smoke size on the
+    CPU, with the settings the phases give them."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    size = next(m for m in cs.SERVE_SIZE if m["arch"] == "rwkv6_7b")
+    assert (size["short_prompt"], size["short_route"]) == (8, "wkv")
+    r = cs.serve_model("cpu", arch="rwkv6_7b", batch=2, prompt=32,
+                       max_len=64, decode_steps=2, worker_steps=2, seed=0,
+                       short_prompt=size["short_prompt"],
+                       short_route=size["short_route"],
+                       config=tconfigs.get_smoke_config)
+    short = r["short"]
+    assert short["prompt"] == 8 and short["batch"] == 2
+    assert short["prefill_launches"] == {} and short["decode_steps"] == 2
+    assert short["prefill_ms"] > 0 and short["decode_ms_per_step"] > 0
+    assert short["prefill_profile"]["before"] == []     # no device spans
+    settings = dict(cs.CONSISTENCY_SHORT)
+    assert settings.pop("arch") == "rwkv6_7b"
+    assert (settings["s"], settings["cut"]) == (16, 8)
+    c = cs.consistency("cpu", arch="rwkv6_7b", tol=1e-3, seed=1,
+                       config=tconfigs.get_smoke_config, **settings)
+    assert c["max_abs_err"] < 1e-4 and c["launches"] == {}
+
+
 def test_chip_smoke_depth_cut_is_reported():
     """A serving phase at fewer layers than the config's (deepseek's on
     one card) runs the cut model and says so."""

@@ -175,14 +175,39 @@ def _passes(acc, a, b, a_exact=False, split=_split):
     return hh, hl, lh
 
 
+def _pad(x, c, width):
+    """(b, h, s, d) float32 -> (b, h, s / c * 16, width): each chunk of c
+    rows followed by 16 - c rows of zeros, each row's d columns by
+    width - d zeros, as TMA or the plain loads fill the kernel's tile."""
+    b, h, s, d = x.shape
+    out = torch.zeros((b, h, s // c, 16, width))
+    out[:, :, :, :c, :d] = x.float().reshape(b, h, s // c, c, d)
+    return out.reshape(b, h, s // c * 16, width)
+
+
 def _split_route_arithmetic(r, k, v, logw, u, state, v_exact=False,
-                            split=_split):
-    """The arithmetic of ``wkv_split`` in plain PyTorch, chunk by chunk in
-    its order: the log-decay summed down each column in base 2, one exp2 a
-    factor, the scores as two halves of the columns (each hh + (hl + lh))
-    added, o as r_dec S and then att v in one accumulator a pass, the state
-    scaled by e^{L_C} and then updated in place one k-step at a time.
-    ``split`` splits each operand into its TF32 parts."""
+                            split=_split, chunk=16):
+    """The arithmetic of the WKV kernel in plain PyTorch, chunk by chunk in
+    its order, at C = min(chunk, S): each head padded to the 64 x 64 tile
+    and each chunk to 16 rows with zeros (``logw`` 0 in padded rows, so
+    their decay is 1), as both instantiations run it (the split one's
+    64 x 64 heads in chunks of 16 need no padding); then the log-decay
+    summed down each column in base 2, one exp2 a factor, the scores as two
+    halves of the columns (each hh + (hl + lh)) added, o as r_dec S and
+    then att v in one accumulator a pass, the state scaled by e^{L_C} and
+    then updated in place one k-step at a time; o's C rows and dv columns
+    and the state's dk x dv corner kept. ``split`` splits each operand into
+    its TF32 parts."""
+    b, h, n, dk0 = r.shape
+    dv0 = v.shape[-1]
+    c0 = min(chunk, n)
+    out_dtype = r.dtype
+    r, k, logw = (_pad(x, c0, 64) for x in (r, k, logw))
+    v = _pad(v, c0, 64)
+    u = torch.zeros(h, 64).index_copy_(1, torch.arange(dk0), u.float())
+    padded = torch.zeros(b, h, 64, 64)
+    padded[:, :, :dk0, :dv0] = state.float()
+    state = padded
     b, h, s, dk = r.shape
     dv = v.shape[-1]
     c = 16
@@ -234,7 +259,9 @@ def _split_route_arithmetic(r, k, v, logw, u, state, v_exact=False,
             St = St + vh[..., sl] @ fl[..., sl, :]
             St = St + vh[..., sl] @ fh[..., sl, :]
         S = St.transpose(-1, -2)
-    return torch.cat(outs, dim=2).to(r.dtype), S.contiguous()
+    o = torch.cat(outs, dim=2).reshape(b, h, n // c0, 16, dv)[:, :, :, :c0]
+    return (o.reshape(b, h, n, dv)[..., :dv0].to(out_dtype),
+            S[:, :, :dk0, :dv0].contiguous())
 
 
 @pytest.mark.parametrize("b,h,s,dk,dv,strong,state", [
@@ -266,6 +293,39 @@ def test_split_route_arithmetic_matches_jax(b, h, s, dk, dv, strong, state):
     full = _split_route_arithmetic(r, k, vb, logw, u, s0)
     dropped = _split_route_arithmetic(r, k, vb, logw, u, s0, v_exact=True)
     assert all(torch.equal(x, y) for x, y in zip(full, dropped))
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk,strong,state", [
+    (4, 2, 8, 64, 64, 8, False, False),      # rwkv6-7b's 8-token prompt
+    (2, 2, 1, 64, 64, 1, False, False),      # one token
+    (1, 2, 13, 64, 64, 13, False, False),
+    (1, 2, 64, 64, 64, 8, False, False),     # a caller's chunk of 8
+    (2, 3, 128, 16, 16, 16, False, False),
+    (2, 2, 96, 16, 32, 16, False, False),
+    (1, 2, 48, 24, 40, 12, False, False),
+    (1, 2, 64, 32, 32, 16, True, False),     # the -4.25 clamp
+    (1, 2, 64, 64, 64, 8, False, True),      # from a non-zero state
+])
+def test_masked_route_arithmetic_matches_jax(b, h, s, dk, dv, chunk, strong,
+                                             state):
+    """The masked ``wkv`` route's arithmetic: each head padded to 64 x 64
+    and each chunk of C = min(chunk, S) to 16 rows with zeros (``logw`` 0
+    there), then ``wkv_split``'s split-TF32 steps, holds JAX's
+    ``wkv_chunked`` at that chunk (o and the final state) and, from a zero
+    state, ``wkv_sequential``, at the reference tolerance. The padding is
+    exact: the chunk boundaries stay at multiples of C."""
+    arrays = _inputs(b, h, s, dk, dv, seed=19, strong=strong)
+    state0 = (np.random.RandomState(20).randn(b, h, dk, dv) if state
+              else np.zeros((b, h, dk, dv))).astype(np.float32)
+    o, st = _split_route_arithmetic(*_t(arrays), torch.from_numpy(state0),
+                                    chunk=chunk)
+    assert o.shape == (b, h, s, dv) and st.shape == (b, h, dk, dv)
+    assert torch.isfinite(o).all() and torch.isfinite(st).all()
+    jo, jstate = jax_chunked(*arrays, jnp.asarray(state0), chunk=chunk)
+    _close(o, jo)
+    _close(st, jstate)
+    if not state:
+        _close(o, jax_sequential(*arrays))
 
 
 def test_one_tf32_pass_would_miss_the_tolerance():
@@ -347,19 +407,23 @@ def _smoke():
     return smoke
 
 
-#: the four compiled instances of the split kernel, as nvcc names them
+#: the four compiled instances of the split kernel, as nvcc names them, and
+#: of the masked one (the ``wkv`` route)
 SPLIT = ("_ZN33_GLOBAL__N__387ee8fb_6_wkv_cu_wkv16wkv_split_kernelI{}EEvNS_9"
          "SplitMapsENS_11SplitParamsEi")
+MASKED = ("_ZN33_GLOBAL__N__387ee8fb_6_wkv_cu_wkv10wkv_kernelI{}EEvNS_9"
+          "SplitMapsENS_11SplitParamsEi")
 SPLIT_TYPES = ("ff", "13__nv_bfloat16f", "13__nv_bfloat16S1_",
                "f13__nv_bfloat16")
 
 
-def _split_log(spill=(), registers=80):
-    """An ``-Xptxas -v`` log of the split kernel's instances, those of
-    ``spill`` with 16 bytes spilled, each with ``registers``."""
+def _split_log(spill=(), registers=80, name=SPLIT):
+    """An ``-Xptxas -v`` log of the split kernel's instances (or, with
+    ``name=MASKED``, the masked kernel's), those of ``spill`` with 16 bytes
+    spilled, each with ``registers``."""
     return "".join(f"""\
-ptxas info    : Compiling entry function '{SPLIT.format(t)}' for 'sm_90a'
-ptxas info    : Function properties for {SPLIT.format(t)}
+ptxas info    : Compiling entry function '{name.format(t)}' for 'sm_90a'
+ptxas info    : Function properties for {name.format(t)}
     {16 * (t in spill)} bytes stack frame, {16 * (t in spill)} bytes spill stores, {16 * (t in spill)} bytes spill loads
 ptxas info    : Used {registers} registers, used 2 barriers
 """ for t in SPLIT_TYPES)
@@ -370,13 +434,14 @@ def test_ptxas_gate_holds_every_wkv_split_instance():
     instances, read from a build log and named in
     ``PTXAS_GATED_INSTANCES``, to no stack, no spill and the 80 registers
     its setmaxnreg split redistributes, and fails when the log reports no
-    such instance."""
+    such instance (the masked instances, gated the same way, clean)."""
     smoke = _smoke()
     clean = dict(stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
                  registers=128, static_smem_bytes=0)
     others = {fn: dict(clean) for fn in (*smoke.PTXAS_GATED.values(),
                                          *smoke.PTXAS_GATED_INSTANCES)
               if fn not in smoke.WKV_SPLIT_INSTANCES}
+    others.update(smoke.ptxas_report(_split_log(name=MASKED)))
     rep = smoke.ptxas_report(_split_log())
     assert set(rep) == {f"wkv_split_kernelI{t}" for t in SPLIT_TYPES}
     assert set(rep) == set(smoke.WKV_SPLIT_INSTANCES)
@@ -394,6 +459,59 @@ def test_ptxas_gate_holds_every_wkv_split_instance():
     with pytest.raises(smoke.PhaseError,
                        match="no report of wkv_split_kernelIff"):
         smoke.ptxas_gate({**others, **rep})
+
+
+def test_ptxas_gate_holds_every_masked_wkv_instance():
+    """The masked instances (the ``wkv`` route, ``wkv_kernel``) are read
+    from the log by their own name, apart from the split ones, and gated as
+    those are: no stack, no spill, exactly 80 registers (the same
+    setmaxnreg split), each present."""
+    smoke = _smoke()
+    clean = dict(stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+                 registers=128, static_smem_bytes=0)
+    others = {fn: dict(clean) for fn in (*smoke.PTXAS_GATED.values(),
+                                         *smoke.PTXAS_GATED_INSTANCES)
+              if fn not in smoke.WKV_SPLIT_INSTANCES}
+    others.update(smoke.ptxas_report(_split_log()))
+    rep = smoke.ptxas_report(_split_log(name=MASKED))
+    assert set(rep) == {f"wkv_kernelI{t}" for t in SPLIT_TYPES} \
+        == set(smoke.WKV_MASKED_INSTANCES)
+    assert "wkv_kernel" in smoke.PTXAS_KERNELS
+    out = smoke.ptxas_gate({**others, **rep})
+    assert set(out["wkv"]) == set(rep)
+    assert set(out["wkv_split"]) == set(smoke.WKV_SPLIT_INSTANCES)
+    spilled = smoke.ptxas_report(_split_log(spill=("ff",), name=MASKED))
+    with pytest.raises(smoke.PhaseError, match="stack or spills"):
+        smoke.ptxas_gate({**others, **spilled})
+    fewer = smoke.ptxas_report(_split_log(registers=72, name=MASKED))
+    with pytest.raises(smoke.PhaseError, match="72 registers"):
+        smoke.ptxas_gate({**others, **fewer})
+    del rep["wkv_kernelI13__nv_bfloat16f"]
+    with pytest.raises(smoke.PhaseError,
+                       match="no report of wkv_kernelI13__nv_bfloat16f"):
+        smoke.ptxas_gate({**others, **rep})
+
+
+def test_wkv_bound_counts_the_useful_work_at_the_chunk():
+    """``chip_smoke._wkv_split_bounds`` at the masked route's headline,
+    rwkv6-7b's heads over an 8-token prompt in one chunk of 8: the bytes
+    (5,783,552, mostly the 4 MiB final state) bind; the operations are the
+    dk x dv x C work of that chunk, not the tile's 16 padded rows."""
+    smoke = _smoke()
+    b, h, s, d, c = 4, 64, 8, 64, 8
+    meta = dict(device="meta")
+    r, k, v = (torch.empty((b, h, s, d), dtype=torch.bfloat16, **meta)
+               for _ in range(3))
+    logw = torch.empty((b, h, s, d), **meta)
+    u = torch.empty((h, d), **meta)
+    st = torch.empty((b, h, d, d), **meta)
+    got = smoke._wkv_split_bounds(r, k, v, logw, u, None, r, st, c)
+    assert got["bytes"] == 5_783_552 and got["bound_by"] == "bytes"
+    pairs = c * (c - 1) // 2
+    assert got["product_flops"] == b * h * (4 * c * d * d
+                                            + 2 * pairs * 2 * d)
+    assert got["flops"] == smoke._wkv_work(r, k, v, logw, u, st, r, c)[1]
+    assert got["bound_ms"] == pytest.approx(5_783_552 / 3.35e12 * 1e3)
 
 
 def test_wkv_split_bound_takes_the_products_on_the_tensor_cores():
