@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from .attention import attention, decode_attention
 from .common import (act_fn, apply_norm, apply_rope, decode_positions,
                      write_at)
@@ -43,29 +44,32 @@ def qkv_project(cfg, p, x, positions):
     head-transposed view."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = torch.einsum("bsd,de->bse", x, p["wq"])
-    k = torch.einsum("bsd,de->bse", x, p["wk"])
-    v = torch.einsum("bsd,de->bse", x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd).transpose(1, 2)
-    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
-    q = apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    return q, k, v
+    with obs.span("attn.qkv"):
+        q = torch.einsum("bsd,de->bse", x, p["wq"])
+        k = torch.einsum("bsd,de->bse", x, p["wk"])
+        v = torch.einsum("bsd,de->bse", x, p["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q.reshape(b, s, hq, hd).transpose(1, 2)
+        k = k.reshape(b, s, hkv, hd).transpose(1, 2)
+        v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = apply_rope(k, positions[:, None], cfg.rope_theta)
+        return q, k, v
 
 
 def attn_out(cfg, p, o):
     b, h, s, hd = o.shape
-    o = o.transpose(1, 2).reshape(b, s, h * hd)
-    return torch.einsum("bse,ed->bsd", o, p["wo"])
+    with obs.span("attn.out"):
+        o = o.transpose(1, 2).reshape(b, s, h * hd)
+        return torch.einsum("bse,ed->bsd", o, p["wo"])
 
 
 def self_attention_full(cfg, p, x, positions, window, *, causal=True):
     q, k, v = qkv_project(cfg, p, x, positions)
-    o = attention(cfg, q, k, v, causal=causal, window=window,
-                  cap=cfg.attn_softcap)
+    with obs.span("attn.core"):
+        o = attention(cfg, q, k, v, causal=causal, window=window,
+                      cap=cfg.attn_softcap)
     return attn_out(cfg, p, o), (k, v)
 
 
@@ -78,10 +82,12 @@ def self_attention_decode(cfg, p, x, kcache, vcache, cur_len: int, window):
     b = x.shape[0]
     positions = decode_positions(cur_len, b, x.device)
     q, k, v = qkv_project(cfg, p, x, positions)
-    write_at(kcache, 2, cur_len, k)
-    write_at(vcache, 2, cur_len, v)
-    o = decode_attention(q, kcache, vcache, cur_len + 1, window=window,
-                         cap=cfg.attn_softcap)
+    with obs.span("attn.cache_write"):
+        write_at(kcache, 2, cur_len, k)
+        write_at(vcache, 2, cur_len, v)
+    with obs.span("attn.core"):
+        o = decode_attention(q, kcache, vcache, cur_len + 1, window=window,
+                             cap=cfg.attn_softcap)
     return attn_out(cfg, p, o), kcache, vcache
 
 

@@ -45,6 +45,7 @@ from typing import Any, Optional
 
 import torch
 
+from .. import obs
 from . import blocks as B
 from .common import apply_norm, dtype_scalar, softcap
 
@@ -72,10 +73,11 @@ def _layers(tree) -> list:
 
 # ------------------------------------------------------------ embeddings
 def embed(cfg, params, tokens):
-    x = params["embed"][tokens.long()]
-    if cfg.embed_scale:
-        x = x * dtype_scalar(cfg.d_model ** 0.5, x.dtype)
-    return x
+    with obs.span("model.embed"):
+        x = params["embed"][tokens.long()]
+        if cfg.embed_scale:
+            x = x * dtype_scalar(cfg.d_model ** 0.5, x.dtype)
+        return x
 
 
 def build_inputs(cfg, params, batch):
@@ -131,12 +133,16 @@ def run_dense_full(cfg, params_blocks, x, positions, *, ffn="mlp",
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in _layers(params_blocks):
-        x, kv, aux_i = body(x, p_l)
+        with obs.span("layer"):
+            x, kv, aux_i = body(x, p_l)
         if collect:
             ks.append(kv[0])
             vs.append(kv[1])
         aux = aux + aux_i
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect else None
+    kvs = None
+    if collect:
+        with obs.span("kv.collect"):
+            kvs = (torch.stack(ks), torch.stack(vs))
     return x, kvs, aux
 
 
@@ -145,17 +151,18 @@ def run_dense_decode(cfg, params_blocks, x, kcache, vcache, cur_len: int,
     """One token through every dense layer; writes the caches in place."""
     paired = cfg.layer_pattern == "local_global"
     for i, p_l in enumerate(_layers(params_blocks)):
-        if paired:
-            x, _, _ = B.dense_layer_decode(
-                cfg, p_l["local"], x, kcache[i, 0], vcache[i, 0], cur_len,
-                _window_for(cfg, "local"), ffn=ffn)
-            x, _, _ = B.dense_layer_decode(
-                cfg, p_l["global"], x, kcache[i, 1], vcache[i, 1], cur_len,
-                _window_for(cfg, "global"), ffn=ffn)
-        else:
-            x, _, _ = B.dense_layer_decode(
-                cfg, p_l, x, kcache[i], vcache[i], cur_len,
-                _window_for(cfg, "global"), ffn=ffn)
+        with obs.span("layer"):
+            if paired:
+                x, _, _ = B.dense_layer_decode(
+                    cfg, p_l["local"], x, kcache[i, 0], vcache[i, 0],
+                    cur_len, _window_for(cfg, "local"), ffn=ffn)
+                x, _, _ = B.dense_layer_decode(
+                    cfg, p_l["global"], x, kcache[i, 1], vcache[i, 1],
+                    cur_len, _window_for(cfg, "global"), ffn=ffn)
+            else:
+                x, _, _ = B.dense_layer_decode(
+                    cfg, p_l, x, kcache[i], vcache[i], cur_len,
+                    _window_for(cfg, "global"), ffn=ffn)
     return x, kcache, vcache
 
 
@@ -174,9 +181,11 @@ def run_ssm_full(cfg, params_blocks, x, chunk=16):
     body = B.remat_wrap(cfg, body)
     caches = []
     for p_l in _layers(params_blocks):
-        x, cache = body(x, p_l)
+        with obs.span("layer"):
+            x, cache = body(x, p_l)
         caches.append(cache)
-    return x, tuple(torch.stack(c) for c in zip(*caches))
+    with obs.span("ssm.state_collect"):
+        return x, tuple(torch.stack(c) for c in zip(*caches))
 
 
 def run_ssm_decode(cfg, params_blocks, x, cache):
@@ -184,11 +193,12 @@ def run_ssm_decode(cfg, params_blocks, x, cache):
     tensors in place and returns them."""
     att_xprev, att_state, cmix_xprev = cache
     for i, p_l in enumerate(_layers(params_blocks)):
-        x, (ax, st, cx) = B.rwkv_layer_decode(
-            cfg, p_l, x, (att_xprev[i], att_state[i], cmix_xprev[i]))
-        att_xprev[i] = ax
-        att_state[i] = st
-        cmix_xprev[i] = cx
+        with obs.span("layer"):
+            x, (ax, st, cx) = B.rwkv_layer_decode(
+                cfg, p_l, x, (att_xprev[i], att_state[i], cmix_xprev[i]))
+            att_xprev[i] = ax
+            att_state[i] = st
+            cmix_xprev[i] = cx
     return x, cache
 
 
@@ -509,10 +519,17 @@ def init_decode_cache(cfg, batch_size: int, max_len: int, enc_len: int = 0,
 
 def prefill(cfg, params, batch, max_len: int):
     """Run the full prompt, return (last_logits (B,V) f32, cache)."""
+    with obs.span("model.prefill"):
+        return _prefill(cfg, params, batch, max_len)
+
+
+def _prefill(cfg, params, batch, max_len: int):
     hidden, _, caches, _ = forward_full(cfg, params, batch, collect=True)
-    logits = unembed_chunk(cfg, params, hidden[:, -1:])[:, 0]
+    with obs.span("model.head"):
+        logits = unembed_chunk(cfg, params, hidden[:, -1:])[:, 0]
     if cfg.family == "dense" or (cfg.family == "moe" and not cfg.mla):
-        k, v = _kv_cache_from(caches, max_len)
+        with obs.span("kv.collect"):
+            k, v = _kv_cache_from(caches, max_len)
         return logits, {"k": k, "v": v}
     if cfg.family == "ssm":
         return logits, caches
@@ -539,6 +556,11 @@ def decode_step(cfg, params, cache, tokens, cur_len: int):
     updated in place."""
     if not isinstance(cur_len, torch.Tensor):
         cur_len = int(cur_len)
+    with obs.span("model.decode_step"):
+        return _decode_step(cfg, params, cache, tokens, cur_len)
+
+
+def _decode_step(cfg, params, cache, tokens, cur_len):
     x = embed(cfg, params, tokens[:, None])
     if cfg.family == "encdec":
         x, cache = run_encdec_decode(cfg, params, x, cache, cur_len)
@@ -556,6 +578,7 @@ def decode_step(cfg, params, cache, tokens, cur_len: int):
         x, cache = run_hybrid_decode(cfg, params, x, cache, cur_len)
     else:
         raise ValueError(cfg.family)
-    x = apply_norm(cfg, x, params.get("final_norm"))
-    logits = unembed_chunk(cfg, params, x)[:, 0]
+    with obs.span("model.head"):
+        x = apply_norm(cfg, x, params.get("final_norm"))
+        logits = unembed_chunk(cfg, params, x)[:, 0]
     return logits, cache

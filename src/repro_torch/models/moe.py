@@ -34,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+from .. import obs
 from .common import act_fn
 
 
@@ -80,28 +81,30 @@ def _exclusive_cumsum_rows(cfg, flat: torch.Tensor) -> torch.Tensor:
 
 def _route(cfg, xt, router):
     """Shared routing prologue: (weights, idx, pos, keep, capacity, aux)."""
-    t = xt.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("td,de->te", xt.float(), router.float())
-    weights, idx = router_topk(logits, k)
-    aux = load_balance_loss(logits, idx, e)
-    capacity = int(max(k * t // e * cfg.capacity_factor, 4))
-    capacity = min(capacity, t)
-    # position of each (token, choice) within its expert's buffer
-    flat = _one_hot(idx, e, torch.int32).reshape(t * k, e)
-    pos = _exclusive_cumsum_rows(cfg, flat)                 # (T*K, E)
-    pos = torch.sum(pos * flat, dim=-1).reshape(t, k)       # (T, K)
-    keep = pos < capacity
-    weights = weights * keep.to(weights.dtype)
-    return weights, idx, pos, keep, capacity, aux
+    with obs.span("moe.route"):
+        t = xt.shape[0]
+        e, k = cfg.n_experts, cfg.top_k
+        logits = torch.einsum("td,de->te", xt.float(), router.float())
+        weights, idx = router_topk(logits, k)
+        aux = load_balance_loss(logits, idx, e)
+        capacity = int(max(k * t // e * cfg.capacity_factor, 4))
+        capacity = min(capacity, t)
+        # position of each (token, choice) within its expert's buffer
+        flat = _one_hot(idx, e, torch.int32).reshape(t * k, e)
+        pos = _exclusive_cumsum_rows(cfg, flat)                 # (T*K, E)
+        pos = torch.sum(pos * flat, dim=-1).reshape(t, k)       # (T, K)
+        keep = pos < capacity
+        weights = weights * keep.to(weights.dtype)
+        return weights, idx, pos, keep, capacity, aux
 
 
 def _expert_ffn(cfg, p, xe):
     """xe: (E, C, d) -> (E, C, d)."""
     act = act_fn(cfg.act)
-    h = act(torch.einsum("ecd,edf->ecf", xe, p["wg"])) \
-        * torch.einsum("ecd,edf->ecf", xe, p["wu"])
-    return torch.einsum("ecf,efd->ecd", h, p["wd"])
+    with obs.span("moe.experts"):
+        h = act(torch.einsum("ecd,edf->ecf", xe, p["wg"])) \
+            * torch.einsum("ecd,edf->ecf", xe, p["wu"])
+        return torch.einsum("ecf,efd->ecd", h, p["wd"])
 
 
 def _shared_ffn(cfg, p, xt):
@@ -132,26 +135,32 @@ def moe_ffn_gather(cfg, p, x: torch.Tensor
     xt = x.reshape(t, d)
     weights, idx, pos, keep, capacity, aux = _route(cfg, xt, p["router"])
 
-    # slot of each (token, choice) in the flat (E*C) table; dropped ones
-    # go to a trash slot E*C, cut off afterwards
-    trash = e * capacity
-    slot = torch.where(keep, idx * capacity + pos, trash)   # (T, K)
-    flat_slot = slot.reshape(-1)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    table = torch.zeros(trash + 1, dtype=torch.long, device=x.device)
-    table[flat_slot] = tok
-    filled = torch.zeros(trash + 1, dtype=torch.bool, device=x.device)
-    filled[flat_slot] = True
-    # out of place: the router weights' gradient flows through wtab
-    wtab = torch.zeros(trash + 1, dtype=weights.dtype,
-                       device=x.device).index_put(
-        (flat_slot,), (weights * keep.to(weights.dtype)).reshape(-1))
+    with obs.span("moe.dispatch"):
+        kept = keep.to(weights.dtype)
+        obs.count("moe.choices", t * k)
+        obs.count("moe.kept", kept)
+        obs.count("moe.slots", e * capacity)
+        # slot of each (token, choice) in the flat (E*C) table; dropped
+        # ones go to a trash slot E*C, cut off afterwards
+        trash = e * capacity
+        slot = torch.where(keep, idx * capacity + pos, trash)   # (T, K)
+        flat_slot = slot.reshape(-1)
+        tok = torch.arange(t, device=x.device).repeat_interleave(k)
+        table = torch.zeros(trash + 1, dtype=torch.long, device=x.device)
+        table[flat_slot] = tok
+        filled = torch.zeros(trash + 1, dtype=torch.bool, device=x.device)
+        filled[flat_slot] = True
+        # out of place: the router weights' gradient flows through wtab
+        wtab = torch.zeros(trash + 1, dtype=weights.dtype,
+                           device=x.device).index_put(
+            (flat_slot,), (weights * kept).reshape(-1))
+        xe = xt[table[:trash]] * filled[:trash, None].to(xt.dtype)
 
-    xe = xt[table[:trash]] * filled[:trash, None].to(xt.dtype)
     ye = _expert_ffn(cfg, p, xe.reshape(e, capacity, d))
-    ye = ye * wtab[:trash].reshape(e, capacity, 1).to(ye.dtype)
-    y = _combine(torch.cat([ye.reshape(trash, d), ye.new_zeros((1, d))]),
-                 slot, idx)
+    with obs.span("moe.combine"):
+        ye = ye * wtab[:trash].reshape(e, capacity, 1).to(ye.dtype)
+        y = _combine(torch.cat([ye.reshape(trash, d),
+                                ye.new_zeros((1, d))]), slot, idx)
 
     if "sg" in p:
         y = y + _shared_ffn(cfg, p, xt)

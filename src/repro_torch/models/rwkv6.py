@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels.rwkv6 import ops as wkv_ops
 from .common import sigmoid, silu
 
@@ -48,20 +49,22 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int = 16):
     r,k,logw: (B,H,S,dk); v: (B,H,S,dv); u: (H,dk);
     state: (B,H,dk,dv) fp32. Returns (o (B,H,S,dv), state_out).
     """
-    return wkv_ops.wkv_with_state(r, k, v, logw, u, state.float(),
-                                  chunk=chunk)
+    with obs.span("rwkv.wkv"):
+        return wkv_ops.wkv_with_state(r, k, v, logw, u, state.float(),
+                                      chunk=chunk)
 
 
 def wkv_decode(r, k, v, logw, u, state):
     """One-token recurrence. r,k,logw:(B,H,dk); v:(B,H,dv);
     state (B,H,dk,dv) fp32 -> (o (B,H,dv), state)."""
-    rf, kf, vf = (t.float() for t in (r, k, v))
-    w = torch.exp(logw.float())
-    kv = kf[..., :, None] * vf[..., None, :]                  # (B,H,dk,dv)
-    o = torch.einsum("bhk,bhkv->bhv",
-                     rf, state + u.float()[None, :, :, None] * kv)
-    state = state * w[..., :, None] + kv
-    return o.to(r.dtype), state
+    with obs.span("rwkv.wkv"):
+        rf, kf, vf = (t.float() for t in (r, k, v))
+        w = torch.exp(logw.float())
+        kv = kf[..., :, None] * vf[..., None, :]              # (B,H,dk,dv)
+        o = torch.einsum("bhk,bhkv->bhv",
+                         rf, state + u.float()[None, :, :, None] * kv)
+        state = state * w[..., :, None] + kv
+        return o.to(r.dtype), state
 
 
 def time_mix(cfg, p, x, xprev, state, *, decode: bool = False,
@@ -71,52 +74,54 @@ def time_mix(cfg, p, x, xprev, state, *, decode: bool = False,
     x: (B,S,d) (S=1 when decode); xprev: (B,d) last token of prev step;
     state: (B,H,dk,dv) fp32. Returns (out, new_xprev, new_state).
     """
-    b, s, d = x.shape
-    h = cfg.n_heads
-    dk = d // h
-    shifted = torch.cat([xprev[:, None], x[:, :-1]], dim=1)
+    with obs.span("rwkv.time_mix"):
+        b, s, d = x.shape
+        h = cfg.n_heads
+        dk = d // h
+        shifted = torch.cat([xprev[:, None], x[:, :-1]], dim=1)
 
-    def mixed(name):
-        return _lora_mix(x, shifted, p[f"mix_{name}"],
-                         p["mix_A"], p[f"mix_B_{name}"])
+        def mixed(name):
+            return _lora_mix(x, shifted, p[f"mix_{name}"],
+                             p["mix_A"], p[f"mix_B_{name}"])
 
-    r = torch.einsum("bsd,de->bse", mixed("r"), p["wr"])
-    k = torch.einsum("bsd,de->bse", mixed("k"), p["wk"])
-    v = torch.einsum("bsd,de->bse", mixed("v"), p["wv"])
-    g = silu(torch.einsum("bsd,de->bse", mixed("g"), p["wg"]))
-    xw = torch.einsum("bsd,dr->bsr", mixed("w"), p["decay_A"])
-    xw = torch.einsum("bsr,rd->bsd", torch.tanh(xw), p["decay_B"])
-    logw = _decay(p["decay_base"][None, None], xw)            # (B,S,d)
+        r = torch.einsum("bsd,de->bse", mixed("r"), p["wr"])
+        k = torch.einsum("bsd,de->bse", mixed("k"), p["wk"])
+        v = torch.einsum("bsd,de->bse", mixed("v"), p["wv"])
+        g = silu(torch.einsum("bsd,de->bse", mixed("g"), p["wg"]))
+        xw = torch.einsum("bsd,dr->bsr", mixed("w"), p["decay_A"])
+        xw = torch.einsum("bsr,rd->bsd", torch.tanh(xw), p["decay_B"])
+        logw = _decay(p["decay_base"][None, None], xw)            # (B,S,d)
 
-    def heads(t):
-        return t.reshape(b, s, h, dk).transpose(1, 2)
+        def heads(t):
+            return t.reshape(b, s, h, dk).transpose(1, 2)
 
-    rh, kh, vh, lwh = heads(r), heads(k), heads(v), heads(logw)
-    if decode:
-        o, state = wkv_decode(rh[:, :, 0], kh[:, :, 0], vh[:, :, 0],
-                              lwh[:, :, 0], p["u"], state)
-        o = o[:, :, None, :]
-    else:
-        o, state = wkv_chunked(rh, kh, vh, lwh, p["u"], state, chunk=chunk)
-    o = o.transpose(1, 2).reshape(b, s, d)
-    # per-head group norm then output gate
-    o = o.reshape(b, s, h, dk)
-    mu = torch.mean(o, dim=-1, keepdim=True)
-    var = torch.var(o.float(), dim=-1, keepdim=True, correction=0)
-    o = ((o - mu) * torch.rsqrt(var + 64e-5)).to(x.dtype)
-    o = o.reshape(b, s, d) * p["ln_x"][None, None]
-    out = torch.einsum("bsd,de->bse", o * g, p["wo"])
-    return out.to(x.dtype), x[:, -1], state
+        rh, kh, vh, lwh = heads(r), heads(k), heads(v), heads(logw)
+        if decode:
+            o, state = wkv_decode(rh[:, :, 0], kh[:, :, 0], vh[:, :, 0],
+                                  lwh[:, :, 0], p["u"], state)
+            o = o[:, :, None, :]
+        else:
+            o, state = wkv_chunked(rh, kh, vh, lwh, p["u"], state, chunk=chunk)
+        o = o.transpose(1, 2).reshape(b, s, d)
+        # per-head group norm then output gate
+        o = o.reshape(b, s, h, dk)
+        mu = torch.mean(o, dim=-1, keepdim=True)
+        var = torch.var(o.float(), dim=-1, keepdim=True, correction=0)
+        o = ((o - mu) * torch.rsqrt(var + 64e-5)).to(x.dtype)
+        o = o.reshape(b, s, d) * p["ln_x"][None, None]
+        out = torch.einsum("bsd,de->bse", o * g, p["wo"])
+        return out.to(x.dtype), x[:, -1], state
 
 
 def channel_mix(cfg, p, x, xprev):
     """RWKV6 FFN: token-shift + squared-relu MLP with receptance gate."""
-    shifted = torch.cat([xprev[:, None], x[:, :-1]], dim=1)
-    delta = shifted - x
-    xk = x + delta * p["cmix_k"]
-    xr = x + delta * p["cmix_r"]
-    kk = torch.einsum("bsd,df->bsf", xk, p["ck"])
-    kk = torch.square(F.relu(kk))
-    vv = torch.einsum("bsf,fd->bsd", kk, p["cv"])
-    rr = sigmoid(torch.einsum("bsd,de->bse", xr, p["cr"]))
-    return (rr * vv).to(x.dtype), x[:, -1]
+    with obs.span("rwkv.channel_mix"):
+        shifted = torch.cat([xprev[:, None], x[:, :-1]], dim=1)
+        delta = shifted - x
+        xk = x + delta * p["cmix_k"]
+        xr = x + delta * p["cmix_r"]
+        kk = torch.einsum("bsd,df->bsf", xk, p["ck"])
+        kk = torch.square(F.relu(kk))
+        vv = torch.einsum("bsf,fd->bsd", kk, p["cv"])
+        rr = sigmoid(torch.einsum("bsd,de->bse", xr, p["cr"]))
+        return (rr * vv).to(x.dtype), x[:, -1]
