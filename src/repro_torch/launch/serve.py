@@ -5,11 +5,13 @@ default.
 Serving workers bootstrap through the elastic control plane: the step
 callable comes from an ``ExecutablePool``, so a worker joining a serving
 fleet reuses the pool entry. In JAX the entry is a compiled executable; in
-the port it is the plain decode step. A cold worker still makes one
-warm-up call on representative shapes (it initialises the card's math
-libraries and the caching allocator for those shapes); a pool hit skips
-it. ``bootstrap_s`` is timed as in JAX, and on the card it waits for the
-warm-up to finish.
+the port it is the decode step. A cold worker still makes one warm-up
+call on representative shapes (it initialises the card's math libraries
+and the caching allocator for those shapes); a pool hit skips it. On the
+card the step keeps a CUDA graph per cache (``launch/steps.py``): each
+worker's first step captures one for the worker's own cache, and its later
+steps replay it. ``bootstrap_s`` is timed as in JAX, and on the card it
+waits for the warm-up to finish.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
         --device cpu

@@ -1,16 +1,19 @@
 """Step functions, train / prefill / decode, and the input specs of every
 (architecture x shape) cell (the counterpart of ``repro/launch/steps.py``).
-PyTorch runs eagerly, so a step is the plain callable JAX would ``jit``;
-the input specs are meta-device tensors where JAX has
-``ShapeDtypeStruct``s: shapes and dtypes, no memory."""
+PyTorch runs eagerly, so a step is the plain callable JAX would ``jit``,
+except that the decode step replays itself as a CUDA graph on the card
+(:func:`make_decode_step`); the input specs are meta-device tensors where
+JAX has ``ShapeDtypeStruct``s: shapes and dtypes, no memory."""
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict
 
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..models import init_decode_cache, init_params, prefill, train_loss, \
     trainable
 from ..models.config import SHAPES_BY_NAME, ShapeSpec
@@ -126,12 +129,141 @@ def make_prefill_step(cfg, max_len: int):
     return step
 
 
+#: decode calls by how they ran, host-side and always on (as
+#: ``kernels/_build.launches``): ``captured`` (no graph for the call's key:
+#: run eagerly, then captured for the next call with that key),
+#: ``replayed``, and ``eager`` (the graph path not taken, or its capture
+#: refused); callers clear it before the run whose calls they read
+decode_calls: collections.Counter = collections.Counter()
+
+#: the most graphs one decode step keeps, the oldest dropped first: a
+#: serving round's cache is a new allocation, whose address may change
+MAX_DECODE_GRAPHS = 8
+
+
+def _graphable(tensors) -> bool:
+    """Whether a decode call may take the graph path: every tensor on a
+    CUDA card, no recording open (its spans and counters fire in eager
+    calls only), nothing autograd would record, no capture underway."""
+    if obs.is_recording() or not all(t.is_cuda for t in tensors):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return not torch.cuda.is_current_stream_capturing()
+
+
+def _signature(leaves) -> tuple:
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for t in leaves)
+
+
+def _math_flags() -> tuple:
+    """The settings that pick the step's kernels, which a graph fixes."""
+    m = torch.backends.cuda.matmul
+    return (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+            m.allow_fp16_reduced_precision_reduction,
+            torch.are_deterministic_algorithms_enabled())
+
+
+class _DecodeGraph:
+    """One captured decode step: its static inputs (the tokens, int32, and
+    ``cur_len``, a 0-d int64 tensor read on the card only) and its static
+    output (the logits). It reads the parameters and reads and writes the
+    cache where its key says they lie."""
+
+    def __init__(self, cfg, params, cache, tokens, stream, pool):
+        dev = tokens.device
+        self.tokens = torch.zeros(tokens.shape, dtype=torch.int32,
+                                  device=dev)
+        self.cur_len = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.logits, out = _decode_step(cfg, params, cache,
+                                                self.tokens, self.cur_len)
+            finally:
+                self.graph.capture_end()
+        if _signature(tree_leaves(out)) != _signature(tree_leaves(cache)):
+            raise RuntimeError("the decode step did not write its cache "
+                               "in place")
+
+    def replay(self, tokens, cur_len):
+        self.tokens.copy_(tokens)
+        if isinstance(cur_len, torch.Tensor):
+            self.cur_len.copy_(cur_len)
+        else:
+            self.cur_len.fill_(int(cur_len))
+        self.graph.replay()
+        return self.logits.clone()
+
+
+class _DecodeStep:
+    """``make_decode_step``'s step. On the card, each call applies the step
+    once: a call whose key (the address, shape, stride and dtype of every
+    parameter and cache leaf, the tokens' shape and the math settings) has
+    a graph replays it; another runs eagerly, then captures a graph for its
+    key, which launches nothing. The graphs share one memory pool on their
+    card and write the caller's cache in place (no copy of it). A capture
+    that fails leaves its key eager."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.refused = set()
+        self.streams: Dict[torch.device, tuple] = {}
+
+    def __call__(self, params, cache, tokens, cur_len):
+        p_leaves, c_leaves = tree_leaves(params), tree_leaves(cache)
+        tensors = p_leaves + c_leaves + [tokens]
+        if isinstance(cur_len, torch.Tensor):
+            tensors.append(cur_len)
+        if not _graphable(tensors):
+            decode_calls["eager"] += 1
+            return _decode_step(self.cfg, params, cache, tokens, cur_len)
+        key = (_signature(p_leaves), _signature(c_leaves), tokens.shape,
+               _math_flags())
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+            decode_calls["replayed"] += 1
+            return graph.replay(tokens, cur_len), cache
+        out = _decode_step(self.cfg, params, cache, tokens, cur_len)
+        if key in self.refused or not self._capture(key, params, cache,
+                                                    tokens):
+            decode_calls["eager"] += 1
+        else:
+            decode_calls["captured"] += 1
+        return out
+
+    def _capture(self, key, params, cache, tokens) -> bool:
+        dev = tokens.device
+        if dev not in self.streams:
+            self.streams[dev] = (torch.cuda.Stream(dev),
+                                 torch.cuda.graph_pool_handle())
+        try:
+            graph = _DecodeGraph(self.cfg, params, cache, tokens,
+                                 *self.streams[dev])
+        except RuntimeError:
+            # a fresh stream for the next capture: a failed one may leave
+            # the allocator routing this stream's allocations to the pool
+            self.streams.pop(dev)
+            self.refused.add(key)
+            return False
+        self.graphs[key] = graph
+        if len(self.graphs) > MAX_DECODE_GRAPHS:
+            self.graphs.popitem(last=False)
+        return True
+
+
 def make_decode_step(cfg):
     """(params, cache, tokens (B,), cur_len) -> (logits (B,V), cache); the
-    cache is updated in place."""
-    def step(params, cache, tokens, cur_len):
-        return _decode_step(cfg, params, cache, tokens, cur_len)
-    return step
+    cache is updated in place. On a CUDA card, outside ``obs.recording()``
+    and with nothing for autograd to record, the step replays a CUDA graph
+    of itself (:class:`_DecodeStep`); elsewhere it runs eagerly.
+    :data:`decode_calls` counts its calls by path."""
+    return _DecodeStep(cfg)
 
 
 # ------------------------------------------------------------- input specs

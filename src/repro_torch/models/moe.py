@@ -149,7 +149,9 @@ def moe_ffn_gather(cfg, p, x: torch.Tensor
         table = torch.zeros(trash + 1, dtype=torch.long, device=x.device)
         table[flat_slot] = tok
         filled = torch.zeros(trash + 1, dtype=torch.bool, device=x.device)
-        filled[flat_slot] = True
+        # filled on the card: a Python bool assigned by index would reach
+        # it through the host, a sync that a CUDA graph cannot capture
+        filled.index_fill_(0, flat_slot, True)
         # out of place: the router weights' gradient flows through wtab
         wtab = torch.zeros(trash + 1, dtype=weights.dtype,
                            device=x.device).index_put(

@@ -110,6 +110,12 @@ class _Tallies:
 _recording: Optional[_Tallies] = None
 
 
+def is_recording() -> bool:
+    """Whether a recording is open (``launch/steps.py``'s decode step runs
+    eagerly inside one, so that its spans and counters fire)."""
+    return _recording is not None
+
+
 def span(name: str):
     """A ``record_function(name)`` range while recording, else one shared
     no-op context."""

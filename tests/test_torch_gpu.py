@@ -9,6 +9,7 @@ This file imports no JAX: the machine with the card has none.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -33,9 +34,12 @@ from repro_torch.kernels.serverless_stage.ref import chunk_gather_ref
 from repro_torch.kernels.serverless_stage import stage
 from repro_torch.kernels.serverless_stage.stage import chunk_gather_cuda
 from repro_torch.kvs import DeviceRaceTable, ShardedDeviceRaceTable
+from repro_torch import obs
+from repro_torch.launch import steps
 from repro_torch.models import decode_step, forward_full, init_params, prefill
 from repro_torch.serverless import (ChainRunner, ContainerPool,
                                     default_registry, expected_outputs)
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -1709,3 +1713,201 @@ def test_one_rank_nccl_pipeline_equals_the_sequential_stack(cuda):
         dist.destroy_process_group()
     want = torch.stack([stage_fn(blocks, mb) for mb in x])
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# ------------------------------------------------------------ decode graphs
+#: one smoke config a family: dense, local/global dense, MoE, MLA, SSM,
+#: hybrid, encoder-decoder
+GRAPH_FAMILIES = ["qwen2_0_5b", "gemma2_2b", "olmoe_1b_7b",
+                  "deepseek_v2_236b", "rwkv6_7b", "zamba2_1_2b",
+                  "seamless_m4t_medium"]
+GRAPH_PROMPT = 32
+
+
+def _served_model(cuda, arch, batch=4, max_len=64):
+    """A smoke config on the card in its own dtype and a prefill of
+    ``batch`` prompts of ``GRAPH_PROMPT`` tokens (an encoder-decoder's:
+    frames and decoder tokens): (cfg, params, logits, cache)."""
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, cuda)
+    tokens = torch.randint(0, cfg.vocab, (batch, GRAPH_PROMPT), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    inputs = {"tokens": tokens}
+    if cfg.family == "encdec":
+        inputs = {"frames": torch.randn((batch, GRAPH_PROMPT, cfg.d_model),
+                                        generator=gen, device=cuda),
+                  "dec_tokens": tokens}
+    logits, cache = prefill(cfg, params, inputs, max_len)
+    return cfg, params, logits, cache
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return None if tree is None else tree.clone()
+
+
+def _greedy(step, params, logits, cache, n, start=GRAPH_PROMPT):
+    """``n`` greedy calls of ``step``: (logits rows, served tokens,
+    cache)."""
+    rows, served = [], []
+    for j in range(n):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        served.append(tok)
+        logits, cache = step(params, cache, tok, start + j)
+        rows.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(rows), torch.stack(served), cache
+
+
+def _same_tree(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_decode_graph_replays_equal_eager_steps(cuda, arch):
+    """``make_decode_step``'s step, 13 greedy calls from a prefill's cache:
+    the first captures, the next 12 replay; its logits, served tokens and
+    cache equal 13 eager ``decode_step`` calls' bit for bit."""
+    cfg, params, logits, cache = _served_model(cuda, arch)
+    want = _greedy(functools.partial(decode_step, cfg), params, logits,
+                   _clone_tree(cache), 13)
+    step = steps.make_decode_step(cfg)
+    steps.decode_calls.clear()
+    got = _greedy(step, params, logits, cache, 13)
+    assert dict(steps.decode_calls) == {"captured": 1, "replayed": 12}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _same_tree(got[2], want[2])
+
+
+def test_decode_graph_advances_rwkv6_state_once_a_call(cuda):
+    """rwkv6's recurrent state is advanced once by each call, the capturing
+    one too (its eager run gives its answer; the capture launches
+    nothing): after each call the state equals that many eager steps'."""
+    cfg, params, logits, cache = _served_model(cuda, "rwkv6_7b")
+    want = _clone_tree(cache)
+    step = steps.make_decode_step(cfg)
+    steps.decode_calls.clear()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for j, path in enumerate(["captured", "replayed", "replayed"]):
+        got, cache = step(params, cache, tok, GRAPH_PROMPT + j)
+        ref, want = decode_step(cfg, params, want, tok, GRAPH_PROMPT + j)
+        torch.cuda.synchronize()
+        assert steps.decode_calls[path] == (1 if path == "captured" else j)
+        assert torch.equal(got, ref) and _same_tree(cache, want)
+        tok = torch.argmax(got, dim=-1).to(torch.int32)
+
+
+def test_decode_graph_keys_on_the_cache_address(cuda):
+    """A cache at a new address captures a graph of its own, which writes
+    that cache and no other; a cache seen before replays its graph. Past
+    ``MAX_DECODE_GRAPHS`` addresses the oldest graph is dropped."""
+    cfg, params, logits, cache_a = _served_model(cuda, "qwen2_0_5b")
+    cache_b, ref = _clone_tree(cache_a), _clone_tree(cache_a)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step = steps.make_decode_step(cfg)
+    steps.decode_calls.clear()
+    a0, cache_a = step(params, cache_a, tok, GRAPH_PROMPT)
+    a1, cache_a = step(params, cache_a, tok, GRAPH_PROMPT + 1)
+    b0, cache_b = step(params, cache_b, tok, GRAPH_PROMPT)
+    b1, cache_b = step(params, cache_b, tok, GRAPH_PROMPT + 1)
+    a2, cache_a = step(params, cache_a, tok, GRAPH_PROMPT + 2)
+    torch.cuda.synchronize()
+    assert dict(steps.decode_calls) == {"captured": 2, "replayed": 3}
+    assert len(step.graphs) == 2
+    assert torch.equal(a0, b0) and torch.equal(a1, b1)
+    for j, got in enumerate([a0, a1, a2]):
+        want, ref = decode_step(cfg, params, ref, tok, GRAPH_PROMPT + j)
+        assert torch.equal(got, want)
+    assert _same_tree(cache_a, ref)
+    others = [_clone_tree(cache_b) for _ in range(steps.MAX_DECODE_GRAPHS)]
+    for other in others:
+        step(params, other, tok, GRAPH_PROMPT + 2)
+    assert len(step.graphs) == steps.MAX_DECODE_GRAPHS
+    steps.decode_calls.clear()
+    step(params, cache_a, tok, GRAPH_PROMPT + 3)
+    assert dict(steps.decode_calls) == {"captured": 1}
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "rwkv6_7b"])
+def test_decode_step_does_not_sync_the_host(cuda, arch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")``, which raises at
+    any op that waits for the card: an eager ``decode_step``, then the
+    graph step's capturing call and a replay."""
+    cfg, params, logits, cache = _served_model(cuda, arch)
+    step = steps.make_decode_step(cfg)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    steps.decode_calls.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_step(cfg, params, cache, tok, GRAPH_PROMPT)
+        step(params, cache, tok, GRAPH_PROMPT + 1)
+        step(params, cache, tok, GRAPH_PROMPT + 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(steps.decode_calls) == {"captured": 1, "replayed": 1}
+
+
+def test_decode_step_under_recording_runs_eagerly_with_its_spans(cuda):
+    """With a graph captured for the call's key, a call inside
+    ``obs.recording()`` still runs eagerly: the profiler sees the port's
+    spans and the MoE counters count every layer's choices."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, logits, cache = _served_model(cuda, "olmoe_1b_7b")
+    step = steps.make_decode_step(cfg)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step(params, cache, tok, GRAPH_PROMPT)
+    steps.decode_calls.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with obs.recording() as tallies:
+            step(params, cache, tok, GRAPH_PROMPT + 1)
+            torch.cuda.synchronize()
+    assert dict(steps.decode_calls) == {"eager": 1}
+    names = {e.key for e in prof.key_averages()}
+    assert {"model.decode_step", "layer", "attn.core", "moe.route",
+            "moe.dispatch", "moe.experts", "moe.combine"} <= names
+    assert tallies["moe.choices"] == 4 * cfg.top_k * cfg.n_layers
+
+
+def test_decode_graph_keeps_a_key_eager_where_its_capture_fails(cuda,
+                                                                 monkeypatch):
+    """A step whose head reads a number back to the host (a sync, which a
+    capture refuses): each call still gives the eager answer, counted
+    ``eager``, and the key is not captured again; the card stays usable,
+    and a step without the sync captures and replays as before."""
+    from repro_torch.models import model
+    cfg, params, logits, cache = _served_model(cuda, "qwen2_0_5b")
+    ref = _clone_tree(cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    head = model.unembed_chunk
+    reads = []
+
+    def reading_head(cfg_, params_, x):
+        reads.append(float(x.float().abs().sum()))
+        return head(cfg_, params_, x)
+
+    monkeypatch.setattr(model, "unembed_chunk", reading_head)
+    step = steps.make_decode_step(cfg)
+    steps.decode_calls.clear()
+    for j in range(2):
+        got, cache = step(params, cache, tok, GRAPH_PROMPT + j)
+        want, ref = decode_step(cfg, params, ref, tok, GRAPH_PROMPT + j)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _same_tree(cache, ref)
+    assert dict(steps.decode_calls) == {"eager": 2}
+    assert not step.graphs and len(step.refused) == 1
+    monkeypatch.setattr(model, "unembed_chunk", head)
+    steps.decode_calls.clear()
+    got = _greedy(steps.make_decode_step(cfg), params, logits, cache, 3,
+                  GRAPH_PROMPT + 2)
+    want = _greedy(functools.partial(decode_step, cfg), params, logits, ref,
+                   3, GRAPH_PROMPT + 2)
+    assert dict(steps.decode_calls) == {"captured": 1, "replayed": 2}
+    assert torch.equal(got[0], want[0]) and _same_tree(got[2], want[2])
